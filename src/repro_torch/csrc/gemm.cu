@@ -45,6 +45,8 @@
 
 #include <type_traits>
 
+#include "common.cuh"
+
 #if !defined(GEMM_NK) || !defined(GEMM_BK)
 #error "build with -DGEMM_NK=0|1 -DGEMM_BK=32|64"
 #endif
@@ -77,25 +79,6 @@ struct Tile {
   static_assert(BM * BN / THREADS <= MAX_ACC, "accumulators exceed budget");
 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// Wait until at most n groups are in flight (wait_group takes an immediate).
-__device__ __forceinline__ void cp_async_wait(int n) {
-  switch (n) {
-    case 3: asm volatile("cp.async.wait_group 3;\n" ::); break;
-    case 2: asm volatile("cp.async.wait_group 2;\n" ::); break;
-    case 1: asm volatile("cp.async.wait_group 1;\n" ::); break;
-    default: asm volatile("cp.async.wait_group 0;\n" ::); break;
-  }
-}
-
 // Issue the copies of sub-dot u (k columns [u*STEP, (u+1)*STEP) of the k
 // block at k0) into one stage of shared memory.
 template <int BM, int BN, int BK, int WARPS, bool NK, int STEP>
@@ -124,15 +107,6 @@ __device__ __forceinline__ void load_subdot(bf16* stage, const bf16* a, const bf
     }
   }
 }
-
-// Reassemble two bf16 (little end first) and split a 32-bit word into two,
-// without taking the address of a local (which would put it in local memory).
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16(lo))) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16(hi))) << 16);
-}
-__device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
-__device__ __forceinline__ float bf16_hi(uint32_t w) { return __uint_as_float(w & 0xffff0000u); }
 
 // The whole kernel for U sub-dots per k block.
 template <int BM, int BN, int BK, int WARPS, bool NK, int U>

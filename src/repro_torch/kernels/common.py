@@ -14,6 +14,9 @@ from __future__ import annotations
 
 from typing import Any, Callable
 
+import numpy as np
+import torch
+
 from ..core.problem import MeasuredProblem
 from ..core.space import Config, SearchSpace
 from ..device import resolve
@@ -30,6 +33,16 @@ def cdiv(a: int, b: int) -> int:
 
 def round_up(a: int, b: int) -> int:
     return cdiv(a, b) * b
+
+
+def inputs_from_numpy(arrays: dict, device=None) -> dict:
+    """The port's inputs from numpy ones: arrays become bf16 tensors on
+    ``device`` (default ``"cuda"``), other values pass through.  With it
+    the tests feed both packages the same values."""
+    dev = resolve(device)
+    return {k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
+            .to(dev, torch.bfloat16) if isinstance(v, np.ndarray) else v
+            for k, v in arrays.items()}
 
 
 class KernelProblem(MeasuredProblem):

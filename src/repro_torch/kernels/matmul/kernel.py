@@ -43,12 +43,12 @@ STAGES, PAD = 2, 8
 #: against an f32 accumulator, so a kernel that skipped that rounding fails.
 PLAIN_TOL = 1e-3
 
-_VARIANTS = {f"{layout}_bk{bk}": {"GEMM_NK": int(layout == "nk"),
-                                  "GEMM_BK": bk}
-             for layout in ("kn", "nk") for bk in BLOCK_K}
+SOURCE = "gemm.cu"
+#: one nvcc build per (layout, block_k) pair
+VARIANTS = {f"{layout}_bk{bk}": {"GEMM_NK": int(layout == "nk"),
+                                 "GEMM_BK": bk}
+            for layout in ("kn", "nk") for bk in BLOCK_K}
 _libs: dict[str, ctypes.CDLL] | None = None
-#: seconds the last build of the libraries took (0.0 when reused)
-build_seconds: float | None = None
 
 
 def smem_bytes(block_m, block_n, block_k, warps, nk):
@@ -75,10 +75,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 def libraries() -> dict[str, ctypes.CDLL]:
     """The four GEMM libraries, built on first call."""
-    global _libs, build_seconds
+    global _libs
     if _libs is None:
-        built = _build.build("gemm.cu", _VARIANTS)
-        build_seconds = built.seconds
+        built = _build.build(SOURCE, VARIANTS)
         _libs = {v: _bind(ctypes.CDLL(str(p))) for v, p in built.libs.items()}
     return _libs
 

@@ -15,8 +15,7 @@ import numpy as np
 import torch
 
 from ...core.space import Config, Constraint, Param, SearchSpace
-from ...device import resolve
-from ..common import SMEM_PER_BLOCK, KernelProblem
+from ..common import SMEM_PER_BLOCK, KernelProblem, inputs_from_numpy
 from . import kernel, ops, ref
 
 #: the JAX package's small correctness shape (its ``make_inputs(small=True)``)
@@ -84,16 +83,6 @@ def build_space(m: int, n: int, k: int) -> SearchSpace:
     return SearchSpace(params, constraints, name="gemm_h100")
 
 
-def inputs_from_numpy(arrays: dict, device=None) -> dict:
-    """The port's inputs from numpy ones: arrays become bf16 tensors on
-    ``device`` (default ``"cuda"``), scalars pass through.  With it the
-    tests feed both packages the same values."""
-    dev = resolve(device)
-    return {k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
-            .to(dev, torch.bfloat16) if isinstance(v, np.ndarray) else v
-            for k, v in arrays.items()}
-
-
 def numpy_inputs(seed: int, m: int, n: int, k: int) -> dict:
     """A, B (K, N) and C drawn from N(0, 1) with numpy; alpha 0.75 and beta
     0.5 as in the JAX package's ``make_inputs``."""
@@ -108,6 +97,7 @@ class GemmProblem(KernelProblem):
     kernel_name = "gemm_h100"
     # paper-scale shape (CLBlast benchmarks tune 4096^3-class GEMMs)
     default_shape = {"m": 4096, "n": 4096, "k": 4096}
+    small_shape = SMALL_SHAPE
     _inputs: dict | None = None      # full-shape inputs, made at first use
     _b_nk: torch.Tensor | None = None
 

@@ -1,6 +1,6 @@
 """The port's boundary: ``repro_torch`` imports neither JAX nor anything of
 the JAX package ``repro``, its entry points default to the card and raise
-without one, and no library product sits on its GEMM kernel path."""
+without one, and no library product sits on its kernel paths."""
 
 import ast
 import json
@@ -15,8 +15,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import device as devmod  # noqa: E402
-from repro_torch import quickstart  # noqa: E402
+from repro_torch import landscape, quickstart  # noqa: E402
 from repro_torch.core.problem import MeasuredProblem  # noqa: E402
+from repro_torch.kernels.attention.space import AttentionProblem  # noqa: E402
 from repro_torch.kernels.matmul.space import (GemmProblem,  # noqa: E402
                                               inputs_from_numpy)
 
@@ -43,7 +44,9 @@ def test_port_imports_neither_jax_nor_repro():
     assert r.returncode == 0, r.stderr
     got = json.loads(r.stdout.strip().splitlines()[-1])
     # every submodule was walked, the kernel package's too
-    assert "repro_torch.kernels.matmul.space" in got["modules"]
+    assert {"repro_torch.kernels.matmul.space",
+            "repro_torch.kernels.attention.space",
+            "repro_torch.landscape"} <= set(got["modules"])
     assert got["bad"] == [], f"repro_torch loaded {got['bad']}"
 
 
@@ -61,6 +64,10 @@ ENTRY_POINTS = {
     "inputs_from_numpy": lambda: inputs_from_numpy(_ARRAYS),
     "quickstart.main": lambda: quickstart.main(small=True, budget=1,
                                                sample=1),
+    "AttentionProblem": lambda: AttentionProblem(),
+    "quickstart.main(flash_attention_h100)": lambda: quickstart.main(
+        problem="flash_attention_h100", small=True, budget=1, sample=1),
+    "landscape.main": lambda: landscape.main(small=True),
 }
 
 
@@ -119,13 +126,20 @@ def _products(tree: ast.AST) -> list[int]:
     return out
 
 
+#: each kernel package and its plain version, the one function beside the
+#: oracle (ref.py) that may hold torch products
+PLAIN = {"matmul": "gemm_plain", "attention": "flash_attention_plain"}
+
+
 @pytest.mark.parametrize("module", ["kernel.py", "ops.py", "space.py"])
-def test_no_library_product_on_the_kernel_path(module):
+@pytest.mark.parametrize("package", list(PLAIN))
+def test_no_library_product_on_the_kernel_path(package, module):
     """Torch products live only in the oracle (ref.py) and in the plain
-    version (``kernel.gemm_plain``); the kernel path has none."""
-    tree = ast.parse((PORT / "kernels" / "matmul" / module).read_text())
+    version (``kernel.gemm_plain``, ``kernel.flash_attention_plain``); the
+    kernel path has none."""
+    tree = ast.parse((PORT / "kernels" / package / module).read_text())
     allowed = set()
     for fn in ast.walk(tree):
-        if isinstance(fn, ast.FunctionDef) and fn.name == "gemm_plain":
+        if isinstance(fn, ast.FunctionDef) and fn.name == PLAIN[package]:
             allowed |= set(_products(fn))
     assert sorted(set(_products(tree)) - allowed) == []

@@ -34,6 +34,17 @@ TOLS = {"f32": 5e-3, "bf16": 2e-2}
 PALLAS_TOL = 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The suite runs in several processes at once; one torch thread each
+    keeps them from oversubscribing the host's cores, which slowed these
+    small CPU ops by up to 100x."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def rel_l2(got, want) -> float:
     g = np.asarray(got, np.float64)
     w = np.asarray(want, np.float64)

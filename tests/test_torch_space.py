@@ -1,7 +1,8 @@
 """The port's copies of ``SearchSpace``/``CompiledSpace`` against the JAX
 package's: the same space built from either package's classes has identical
 tables and draws.  And the port's ``gemm_h100`` space audits clean under the
-JAX package's space auditor."""
+JAX package's space auditor (``flash_attention_h100``'s audit is in
+``test_torch_attention.py``)."""
 
 import numpy as np
 import pytest
@@ -12,6 +13,8 @@ from repro.core import space as jspace  # noqa: E402
 from repro.kernels.matmul.space import GemmProblem as JaxGemm  # noqa: E402
 from repro.staticcheck.spaceaudit import audit_space  # noqa: E402
 from repro_torch.core import space as tspace  # noqa: E402
+from repro_torch.kernels.attention.space import \
+    build_space as build_attention  # noqa: E402
 from repro_torch.kernels.matmul.space import (SMALL_SHAPE,  # noqa: E402
                                               build_space)
 
@@ -28,9 +31,11 @@ def rebuild(space, mod):
 def _pairs():
     ref = JaxGemm().space
     port = build_space(4096, 4096, 4096)
+    port_attn = build_attention(32, 8, 4096, 4096, 128)
     return {
         "reference_gemm": (ref, rebuild(ref, tspace)),
         "gemm_h100": (rebuild(port, jspace), port),
+        "flash_attention_h100": (rebuild(port_attn, jspace), port_attn),
     }
 
 
@@ -73,13 +78,17 @@ def test_from_flat_index_and_encode(pair):
         assert t.satisfies(cfg) == j.satisfies(cfg)
 
 
-def test_python_and_vector_constraints_agree():
+@pytest.mark.parametrize("port", [
+    build_space(4096, 4096, 4096), build_space(256, 256, 512),
+    build_attention(32, 8, 4096, 4096, 128),
+    build_attention(4, 2, 128, 256, 64)],
+    ids=["gemm", "gemm_small", "attention", "attention_small"])
+def test_python_and_vector_constraints_agree(port):
     """The port space's scalar predicates and ``vec=`` forms are the same
     function: the mask built from each agrees row for row."""
-    port = build_space(4096, 4096, 4096)
     scalar_only = tspace.SearchSpace(
         port.params, [tspace.Constraint(c.name, c.fn) for c in port.constraints],
-        name="gemm_h100_scalar")
+        name=port.name + "_scalar")
     assert np.array_equal(port.compiled().mask, scalar_only.compiled().mask)
 
 

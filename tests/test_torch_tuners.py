@@ -95,6 +95,9 @@ def test_identical_tables_across_packages(name, seed, tmp_path):
 
 def test_port_registry_holds_the_ported_tuners():
     assert set(ttuners.TUNERS) == {ttuners.RandomSearch.name,
+                                   ttuners.GridSearch.name,
                                    ttuners.GeneticAlgorithm.name}
+    assert all(ttuners.TUNERS[n].__name__ == jtuners.TUNERS[n].__name__
+               for n in ttuners.TUNERS)
     arch = inspect.signature(ttuners.run_tuner).parameters["arch"].default
     assert arch == tproblem.DEFAULT_ARCH == "h100"
