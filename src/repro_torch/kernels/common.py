@@ -35,13 +35,14 @@ def round_up(a: int, b: int) -> int:
     return cdiv(a, b) * b
 
 
-def inputs_from_numpy(arrays: dict, device=None) -> dict:
-    """The port's inputs from numpy ones: arrays become bf16 tensors on
-    ``device`` (default ``"cuda"``), other values pass through.  With it
-    the tests feed both packages the same values."""
+def inputs_from_numpy(arrays: dict, device=None,
+                      dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The port's inputs from numpy ones: arrays become ``dtype`` tensors
+    (default bf16) on ``device`` (default ``"cuda"``), other values pass
+    through.  With it the tests feed both packages the same values."""
     dev = resolve(device)
     return {k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
-            .to(dev, torch.bfloat16) if isinstance(v, np.ndarray) else v
+            .to(dev, dtype) if isinstance(v, np.ndarray) else v
             for k, v in arrays.items()}
 
 

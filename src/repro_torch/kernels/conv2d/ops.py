@@ -1,0 +1,81 @@
+"""Public 2-D convolution op: the Hopper kernel for CUDA tensors, the plain
+version for CPU tensors, and a count of kernel launches
+(``conv2d.launches``)."""
+
+from __future__ import annotations
+
+import torch
+
+from ...device import HOPPER
+from . import kernel
+
+#: measured over the whole ``conv2d_h100`` space at the default shape on an
+#: H100 (see PERF.md): the fastest config, 32 x 32 outputs a block, 8 rows a
+#: thread, the whole filter unrolled and in constant memory, f32.  At
+#: another filter size the unroll factors snap to its divisors.
+DEFAULT_CONFIG = {"block_h": 32, "block_w": 32, "unroll_fh": 15,
+                  "unroll_fw": 15, "row_chunk": 8, "acc_dtype": "f32",
+                  "filter_smem": 0}
+
+
+def check(image: torch.Tensor, filt: torch.Tensor, cfg: dict) -> None:
+    """Raise ValueError unless the operands and config fit the kernel: 2-D
+    f32, contiguous, on one device, a square filter no larger than the
+    image, and a block of 32 to 512 threads from the compiled menus
+    (``row_chunk`` dividing ``block_h``)."""
+    for name, t in (("image", image), ("filt", filt)):
+        if t.dim() != 2 or not t.is_contiguous() or t.dtype != torch.float32:
+            raise ValueError(f"conv2d: {name} must be a contiguous 2-D f32 "
+                             f"tensor")
+    if filt.device != image.device:
+        raise ValueError(f"conv2d: filt is on {filt.device}, image on "
+                         f"{image.device}")
+    fh, fw = filt.shape
+    if fh != fw or fh > min(image.shape):
+        raise ValueError(f"conv2d: filter {tuple(filt.shape)} must be square "
+                         f"and fit the image {tuple(image.shape)}")
+    bh, bw, rc = cfg["block_h"], cfg["block_w"], cfg["row_chunk"]
+    if bh not in kernel.BLOCK_H or bw not in kernel.BLOCK_W \
+            or rc not in kernel.ROW_CHUNK or bh % rc \
+            or not kernel.MIN_THREADS <= kernel.threads(bh, bw, rc) \
+            <= kernel.MAX_THREADS \
+            or cfg["unroll_fh"] not in kernel.UNROLL \
+            or cfg["unroll_fw"] not in kernel.UNROLL \
+            or cfg["acc_dtype"] not in ("f32", "bf16") \
+            or cfg["filter_smem"] not in (0, 1):
+        raise ValueError(
+            f"conv2d: config {cfg} is outside the compiled menus (row_chunk "
+            f"must divide block_h and the block have "
+            f"{kernel.MIN_THREADS}..{kernel.MAX_THREADS} threads)")
+
+
+def conv2d(image: torch.Tensor, filt: torch.Tensor,
+           config: dict | None = None) -> torch.Tensor:
+    """The 'valid' correlation of ``image`` (H, W) with ``filt`` (F, F),
+    (H - F + 1, W - F + 1) f32, under ``config`` (completed from
+    :data:`DEFAULT_CONFIG`; the unroll factors snap to divisors of F).
+    CUDA tensors run the kernel, or raise; CPU tensors run
+    :func:`kernel.conv2d_plain`."""
+    cfg = dict(DEFAULT_CONFIG)
+    if config:
+        cfg.update(config)
+    check(image, filt, cfg)
+    if image.device.type == "cpu":
+        return kernel.conv2d_plain(image, filt, **cfg)
+    if image.device.type != "cuda":
+        raise ValueError(f"conv2d: no kernel for device {image.device}")
+    f = filt.shape[0]
+    if f not in kernel.FILTER_SIZES:
+        raise ValueError(f"conv2d: the kernel is built for filters of "
+                         f"{kernel.FILTER_SIZES}, not {f}")
+    if torch.cuda.get_device_capability(image.device) != HOPPER:
+        raise ValueError(f"conv2d: the kernel is built for sm_90a; "
+                         f"{torch.cuda.get_device_name(image.device)} is not")
+    out = torch.empty((image.shape[0] - f + 1, image.shape[1] - f + 1),
+                      dtype=torch.float32, device=image.device)
+    kernel.launch(image, filt, out, cfg)
+    conv2d.launches += 1
+    return out
+
+
+conv2d.launches = 0

@@ -1,0 +1,74 @@
+"""Public point-in-polygon op: the Hopper kernel for CUDA tensors, the plain
+version for CPU tensors, and a count of kernel launches
+(``pnpoly.launches``)."""
+
+from __future__ import annotations
+
+import torch
+
+from ...device import HOPPER
+from . import kernel
+
+#: measured over the whole ``pnpoly_h100`` space at the default shape on an
+#: H100 (see PERF.md): the fastest config with the points as (2, N) rows,
+#: the layout callers hold.  The same config with float2 points was 0.2 %
+#: faster, within the card's noise.
+DEFAULT_CONFIG = {"block_points": 4096, "unroll_v": 8, "between_method": 0,
+                  "use_method": 2, "precompute_slope": 1,
+                  "coord_layout": "soa"}
+
+
+def check(points: torch.Tensor, poly: torch.Tensor, cfg: dict) -> None:
+    """Raise ValueError unless the operands and config fit the kernel: f32,
+    contiguous, on one device, ``points`` laid out per ``coord_layout``
+    ((2, N) or (N, 2)), ``poly`` (2, V) with 1 <= V <= 4096, and every
+    value within the compiled menus."""
+    for name, t in (("points", points), ("poly", poly)):
+        if t.dim() != 2 or not t.is_contiguous() or t.dtype != torch.float32:
+            raise ValueError(f"pnpoly: {name} must be a contiguous 2-D f32 "
+                             f"tensor")
+    if poly.device != points.device:
+        raise ValueError(f"pnpoly: poly is on {poly.device}, points on "
+                         f"{points.device}")
+    aos = cfg["coord_layout"] == "aos"
+    if (points.shape[1] if aos else points.shape[0]) != 2 \
+            or poly.shape[0] != 2 or not 1 <= poly.shape[1] <= kernel.MAX_V:
+        raise ValueError(f"pnpoly: shapes points{tuple(points.shape)} "
+                         f"poly{tuple(poly.shape)} do not fit coord_layout="
+                         f"{cfg['coord_layout']!r} and (2, V), V <= "
+                         f"{kernel.MAX_V}")
+    if cfg["block_points"] not in kernel.BLOCK_POINTS \
+            or cfg["unroll_v"] not in kernel.UNROLL_V \
+            or cfg["between_method"] not in kernel.BETWEEN_METHODS \
+            or cfg["use_method"] not in kernel.USE_METHODS \
+            or cfg["precompute_slope"] not in (0, 1) \
+            or cfg["coord_layout"] not in ("soa", "aos"):
+        raise ValueError(f"pnpoly: config {cfg} is outside the compiled "
+                         f"menus")
+
+
+def pnpoly(points: torch.Tensor, poly: torch.Tensor,
+           config: dict | None = None) -> torch.Tensor:
+    """Inside flags, int32 (N,), of ``points`` ((2, N) for ``coord_layout``
+    "soa", (N, 2) for "aos") against the polygon ``poly`` (2, V), under
+    ``config`` (completed from :data:`DEFAULT_CONFIG`).  CUDA tensors run
+    the kernel, or raise; CPU tensors run :func:`kernel.pnpoly_plain`."""
+    cfg = dict(DEFAULT_CONFIG)
+    if config:
+        cfg.update(config)
+    check(points, poly, cfg)
+    if points.device.type == "cpu":
+        return kernel.pnpoly_plain(points, poly, **cfg)
+    if points.device.type != "cuda":
+        raise ValueError(f"pnpoly: no kernel for device {points.device}")
+    if torch.cuda.get_device_capability(points.device) != HOPPER:
+        raise ValueError(f"pnpoly: the kernel is built for sm_90a; "
+                         f"{torch.cuda.get_device_name(points.device)} is not")
+    n = points.shape[0] if cfg["coord_layout"] == "aos" else points.shape[1]
+    out = torch.empty(n, dtype=torch.int32, device=points.device)
+    kernel.launch(points, poly, out, cfg)
+    pnpoly.launches += 1
+    return out
+
+
+pnpoly.launches = 0

@@ -2,6 +2,9 @@
 
     PYTHONPATH=src python -m repro_torch.landscape [--problem NAME] [--small]
 
+``NAME`` is one of the problems measured whole: ``pnpoly_h100``,
+``nbody_h100``, ``conv2d_h100`` or ``flash_attention_h100`` (the default).
+
 1. time every config of the problem's space on the card: a grid search over
    the whole space in shuffled order (so drift of the card's clock is not
    tied to any parameter), each config measured as the tuners measure it;

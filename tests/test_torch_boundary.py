@@ -3,6 +3,7 @@ the JAX package ``repro``, its entry points default to the card and raise
 without one, and no library product sits on its kernel paths."""
 
 import ast
+import importlib.util
 import json
 import os
 import subprocess
@@ -18,6 +19,9 @@ from repro_torch import device as devmod  # noqa: E402
 from repro_torch import landscape, quickstart  # noqa: E402
 from repro_torch.core.problem import MeasuredProblem  # noqa: E402
 from repro_torch.kernels.attention.space import AttentionProblem  # noqa: E402
+from repro_torch.kernels.conv2d.space import Conv2dProblem  # noqa: E402
+from repro_torch.kernels.nbody.space import NbodyProblem  # noqa: E402
+from repro_torch.kernels.pnpoly.space import PnpolyProblem  # noqa: E402
 from repro_torch.kernels.matmul.space import (GemmProblem,  # noqa: E402
                                               inputs_from_numpy)
 
@@ -46,6 +50,9 @@ def test_port_imports_neither_jax_nor_repro():
     # every submodule was walked, the kernel package's too
     assert {"repro_torch.kernels.matmul.space",
             "repro_torch.kernels.attention.space",
+            "repro_torch.kernels.nbody.space",
+            "repro_torch.kernels.pnpoly.space",
+            "repro_torch.kernels.conv2d.space",
             "repro_torch.landscape"} <= set(got["modules"])
     assert got["bad"] == [], f"repro_torch loaded {got['bad']}"
 
@@ -68,6 +75,13 @@ ENTRY_POINTS = {
     "quickstart.main(flash_attention_h100)": lambda: quickstart.main(
         problem="flash_attention_h100", small=True, budget=1, sample=1),
     "landscape.main": lambda: landscape.main(small=True),
+    "NbodyProblem": lambda: NbodyProblem(),
+    "PnpolyProblem": lambda: PnpolyProblem(),
+    "Conv2dProblem": lambda: Conv2dProblem(),
+    "quickstart.main(pnpoly_h100)": lambda: quickstart.main(
+        problem="pnpoly_h100", small=True, budget=1, sample=1),
+    "landscape.main(conv2d_h100)": lambda: landscape.main(
+        problem="conv2d_h100", small=True),
 }
 
 
@@ -112,34 +126,96 @@ def test_measured_problem_records_the_device_arch():
 
 
 _PRODUCT_CALLS = {"matmul", "mm", "bmm", "addmm", "baddbmm", "einsum",
-                  "scaled_dot_product_attention", "compile", "linear"}
+                  "scaled_dot_product_attention", "compile", "linear",
+                  "conv1d", "conv2d", "conv3d", "conv_transpose2d", "unfold"}
 
 
 def _products(tree: ast.AST) -> list[int]:
+    """Lines of ``@`` products and of calls named in ``_PRODUCT_CALLS``;
+    ``ops.conv2d``, the port's own op, is not a library call."""
     out = []
     for node in ast.walk(tree):
         if isinstance(node, ast.BinOp) and isinstance(node.op, ast.MatMult):
             out.append(node.lineno)
         elif isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute) \
-                and node.func.attr in _PRODUCT_CALLS:
+                and node.func.attr in _PRODUCT_CALLS \
+                and not (isinstance(node.func.value, ast.Name)
+                         and node.func.value.id == "ops"):
             out.append(node.lineno)
     return out
 
 
 #: each kernel package and its plain version, the one function beside the
 #: oracle (ref.py) that may hold torch products
-PLAIN = {"matmul": "gemm_plain", "attention": "flash_attention_plain"}
+PLAIN = {"matmul": "gemm_plain", "attention": "flash_attention_plain",
+         "nbody": "nbody_plain", "pnpoly": "pnpoly_plain",
+         "conv2d": "conv2d_plain"}
 
 
 @pytest.mark.parametrize("module", ["kernel.py", "ops.py", "space.py"])
 @pytest.mark.parametrize("package", list(PLAIN))
 def test_no_library_product_on_the_kernel_path(package, module):
-    """Torch products live only in the oracle (ref.py) and in the plain
-    version (``kernel.gemm_plain``, ``kernel.flash_attention_plain``); the
-    kernel path has none."""
+    """Torch products and convolutions live only in the oracle (ref.py) and
+    in the plain version (``kernel.gemm_plain``, ``kernel.nbody_plain``,
+    ...); the kernel path has none."""
     tree = ast.parse((PORT / "kernels" / package / module).read_text())
     allowed = set()
     for fn in ast.walk(tree):
         if isinstance(fn, ast.FunctionDef) and fn.name == PLAIN[package]:
             allowed |= set(_products(fn))
     assert sorted(set(_products(tree)) - allowed) == []
+
+
+def test_the_product_check_sees_a_convolution():
+    """``F.conv2d`` or ``torch.conv2d`` on a kernel path is flagged; the
+    port's own ``ops.conv2d`` is not, and the oracle's call is where the
+    one convolution of the conv2d package lives."""
+    bad = ast.parse("import torch.nn.functional as F\n"
+                    "def f(x, w):\n"
+                    "    return F.conv2d(x, w) + torch.conv2d(x, w)\n")
+    assert _products(bad) == [3, 3]
+    assert _products(ast.parse("ops.conv2d(image, filt, cfg)\n")) == []
+    ref = ast.parse((PORT / "kernels" / "conv2d" / "ref.py").read_text())
+    assert len(_products(ref)) == 1
+
+
+def test_inputs_from_numpy_takes_a_dtype():
+    """bf16 by default (GEMM and attention), f32 when asked (nbody, pnpoly,
+    conv2d), with the values rounded only by the dtype."""
+    a = np.linspace(-2.0, 2.0, 7, dtype=np.float32)
+    x = inputs_from_numpy({"a": a, "n": 3}, device="cpu",
+                          dtype=torch.float32)
+    assert x["a"].dtype == torch.float32 and x["n"] == 3
+    assert np.array_equal(x["a"].numpy(), a)
+    y = inputs_from_numpy({"a": a}, device="cpu")
+    assert y["a"].dtype == torch.bfloat16
+    assert torch.equal(y["a"], x["a"].to(torch.bfloat16))
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_chip_smoke_checks_every_cuda_source():
+    """``chip_smoke.py`` looks each kernel up in one table: a row for every
+    CUDA source of the port, each op with its launch counter, so a kernel
+    cannot be built without being held against its plain version and
+    counted on its path."""
+    table = _chip_smoke().kernel_table()
+    assert {m.SOURCE for m, _ in table.values()} \
+        == {p.name for p in (PORT / "csrc").glob("*.cu")}
+    for module, op in table.values():
+        assert isinstance(op.launches, int) and module.VARIANTS
+        assert 0.0 <= module.PLAIN_TOL <= 1e-3
+
+
+def test_chip_smoke_exits_nonzero_without_a_card():
+    r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                       capture_output=True, text=True, timeout=300,
+                       env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout and '"kernels"' not in r.stdout

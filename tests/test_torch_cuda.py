@@ -1,5 +1,6 @@
-"""The port on a Hopper card: the CUDA GEMM and flash attention against their
-plain versions, and the measured evaluator.  Marked ``cuda``; each test
+"""The port on a Hopper card: the CUDA GEMM, flash attention, N-body, point
+in polygon and 2-D convolution against their plain versions, and the
+measured evaluator.  Marked ``cuda``; each test
 skips on a host without an sm_90 device.  This file imports no JAX, so it
 also runs where only the port is installed:
 
@@ -15,7 +16,16 @@ from repro_torch.kernels.attention import ops as fops  # noqa: E402
 from repro_torch.kernels.attention.space import AttentionProblem  # noqa: E402
 from repro_torch.kernels.attention.space import (  # noqa: E402
     inputs_from_numpy, numpy_inputs)
+from repro_torch.kernels.conv2d import kernel as ckernel  # noqa: E402
+from repro_torch.kernels.conv2d import ops as cops  # noqa: E402
+from repro_torch.kernels.conv2d.space import Conv2dProblem  # noqa: E402
 from repro_torch.kernels.matmul import kernel, ops  # noqa: E402
+from repro_torch.kernels.nbody import kernel as nkernel  # noqa: E402
+from repro_torch.kernels.nbody import ops as nops  # noqa: E402
+from repro_torch.kernels.nbody.space import NbodyProblem  # noqa: E402
+from repro_torch.kernels.pnpoly import kernel as pkernel  # noqa: E402
+from repro_torch.kernels.pnpoly import ops as pops  # noqa: E402
+from repro_torch.kernels.pnpoly.space import PnpolyProblem, laid_out  # noqa: E402
 from repro_torch.kernels.matmul.space import SMALL_SHAPE, GemmProblem  # noqa: E402
 from repro_torch.quickstart import rel_l2, tolerance  # noqa: E402
 
@@ -98,3 +108,65 @@ def test_attention_measured_evaluator_times_the_kernel(hopper):
     assert t.ok and t.arch == prob.arch != "cpu"
     assert fops.attention.launches - before == prob.warmup + prob.repeats
     assert 0 < t.info["min_s"] <= t.objective <= t.info["max_s"]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_pnpoly_kernel_matches_plain_version(hopper, seed):
+    """Exactly: 0 mismatching points, in every sampled variant."""
+    prob = PnpolyProblem(shape={"n": 20000, "v": 600}, device="cuda")
+    x = prob.make_inputs(seed=seed, small=False)
+    for cfg in prob.space.sample_distinct(12, seed):
+        pts = laid_out(x["points"], cfg)
+        before = pops.pnpoly.launches
+        got = pops.pnpoly(pts, x["poly"], cfg)
+        want = pkernel.pnpoly_plain(pts, x["poly"], **cfg)
+        torch.cuda.synchronize()
+        assert pops.pnpoly.launches == before + 1
+        assert int((got != want).sum()) == 0, cfg
+        assert rel_l2(got, prob.run_reference(cfg, x)) \
+            <= tolerance(prob.name, cfg)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_nbody_kernel_matches_plain_version(hopper, seed):
+    prob = NbodyProblem(shape={"n": 4096}, device="cuda")
+    x = prob.make_inputs(seed=seed, small=False)
+    for cfg in prob.space.sample_distinct(8, seed):
+        before = nops.nbody.launches
+        got = prob.run_kernel(cfg, x)
+        pos = x["pos"] if cfg["layout"] == "soa" \
+            else nkernel.to_aos(x["pos"], x["mass"])
+        mass = x["mass"] if cfg["layout"] == "soa" else None
+        want = nkernel.nbody_plain(pos, mass, **cfg)
+        torch.cuda.synchronize()
+        assert nops.nbody.launches == before + 1
+        err = rel_l2(got, want)
+        assert err <= nkernel.PLAIN_TOL, (err, cfg)
+        assert rel_l2(got, prob.run_reference(cfg, x)) \
+            <= tolerance(prob.name, cfg)
+        if cfg["compute_dtype"] == "bf16":
+            f32 = nkernel.nbody_plain(pos, mass,
+                                      **dict(cfg, compute_dtype="f32"))
+            assert rel_l2(got, f32) > err, cfg
+
+
+@pytest.mark.parametrize("shape", [Conv2dProblem.small_shape,
+                                   {"h": 100, "w": 300, "fh": 15, "fw": 15}],
+                         ids=["f5", "f15"])
+def test_conv2d_kernel_matches_plain_version(hopper, shape):
+    prob = Conv2dProblem(shape=shape, device="cuda")
+    x = prob.make_inputs(seed=0, small=False)
+    for cfg in prob.space.sample_distinct(12, 2):
+        before = cops.conv2d.launches
+        got = cops.conv2d(x["image"], x["filt"], cfg)
+        want = ckernel.conv2d_plain(x["image"], x["filt"], **cfg)
+        torch.cuda.synchronize()
+        assert cops.conv2d.launches == before + 1
+        err = rel_l2(got, want)
+        assert err <= ckernel.PLAIN_TOL, (err, cfg)
+        assert rel_l2(got, prob.run_reference(cfg, x)) \
+            <= tolerance(prob.name, cfg)
+        if cfg["acc_dtype"] == "bf16":
+            f32 = ckernel.conv2d_plain(x["image"], x["filt"],
+                                       **dict(cfg, acc_dtype="f32"))
+            assert rel_l2(got, f32) > err, cfg

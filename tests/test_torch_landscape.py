@@ -184,3 +184,18 @@ def test_landscape_on_the_host(tmp_path, capsys):
 def test_landscape_refuses_a_problem_it_does_not_measure_whole():
     with pytest.raises(ValueError, match="measured whole"):
         landscape.main(problem="gemm_h100", device="cpu")
+
+
+def test_landscape_measures_nbody_whole_on_the_host():
+    """A problem of this slice through ``landscape.main --small``: every
+    admitted config of ``nbody_h100`` at N = 512 measured once, with no
+    invalid trial, and the five results on that table."""
+    out = landscape.main(problem="nbody_h100", device="cpu", small=True)
+    prob, table = out["problem"], out["table"]
+    n = prob.space.compiled().n_valid
+    assert prob.name == "nbody_h100" and n == 480
+    assert len(table) == n and out["invalid"] == 0
+    assert out["speedup"] >= 1.0
+    assert 1 <= out["n90"] <= out["n99"] <= n
+    assert list(out["pfi"]) == list(prob.space.param_names)
+    assert out["table8"]["constrained"] == n

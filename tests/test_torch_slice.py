@@ -1,8 +1,8 @@
 """The port's slices end to end on the host: the quickstart and a genetic
 algorithm over ``GemmProblem(device="cpu")`` at 256x256x512, the quickstart
-over ``flash_attention_h100`` at its small shape, timing the plain versions
-with the host clock, and published tables both packages' ``ResultsDB``
-read."""
+over ``flash_attention_h100``, ``nbody_h100``, ``pnpoly_h100`` and
+``conv2d_h100`` at their small shapes, timing the plain versions with the
+host clock, and published tables both packages' ``ResultsDB`` read."""
 
 import math
 
@@ -94,3 +94,33 @@ def test_quickstart_tunes_attention_on_the_host(tmp_path):
     key = ("flash_attention_h100", "cpu", "sampled_8_1")
     assert jresults.ResultsDB(tmp_path).get(*key).objectives \
         == out["table"].objectives
+
+
+@pytest.mark.parametrize("problem", ["nbody_h100", "pnpoly_h100",
+                                     "conv2d_h100"])
+def test_quickstart_tunes_the_f32_problems_on_the_host(problem, tmp_path):
+    """nbody, pnpoly and conv2d through the quickstart at their small
+    shapes: every trial valid, the winner within the oracle tolerance of
+    its config (exact for pnpoly), the table loads in the JAX package."""
+    out = quickstart.main(problem=problem, device="cpu", small=True,
+                          budget=6, sample=6, results_dir=tmp_path)
+    prob = out["problem"]
+    assert prob.name == problem and prob.arch == "cpu"
+    assert all(r.evaluations == 6 and all(t.ok for t in r.trials)
+               for r in out["runs"].values())
+    assert out["rel_l2"] <= quickstart.tolerance(problem, out["best"].config)
+    key = (problem, "cpu", "sampled_6_1")
+    assert jresults.ResultsDB(tmp_path).get(*key).objectives \
+        == out["table"].objectives
+
+
+def test_tolerance_takes_the_low_precision_one_for_any_bf16_value():
+    """As tests/test_kernels.py chooses it: nbody's parameter is
+    compute_dtype and pnpoly has no dtype at all."""
+    assert quickstart.tolerance("nbody_h100", {"compute_dtype": "bf16",
+                                               "layout": "soa"}) == 8e-2
+    assert quickstart.tolerance("nbody_h100", {"compute_dtype": "f32"}) == 1e-3
+    assert quickstart.tolerance("pnpoly_h100", {"between_method": 1}) == 0.0
+    assert quickstart.tolerance("conv2d_h100", {"acc_dtype": "bf16"}) == 3e-2
+    assert quickstart.tolerance("gemm_h100", {"acc_dtype": "f32",
+                                              "rhs_layout": "kn"}) == 5e-3
