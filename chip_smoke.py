@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``src/repro_torch``) on one Hopper card.
 
-    python3 chip_smoke.py [--budget N] [--json PATH]
+    python3 chip_smoke.py [--budget N] [--samples S] [--json PATH]
 
 Phases, each timed:
 
@@ -17,34 +17,50 @@ Phases, each timed:
                heads, 256 x 256, d 64, causal and full, and 128 x 256;
                N-body 512 and 4096 bodies; pnpoly 1536 points and a
                17-gon; conv2d 48 x 160 with a 5 x 5 filter and 300 x 600
-               with 15 x 15), and on three configs at the full shapes;
-               within the JAX package's tolerance and the tighter
-               ``kernel.PLAIN_TOL``, with a bf16-vs-f32 control for every
-               kernel with a bf16 option.  pnpoly is held exactly (0
-               mismatching points), and its twelve method variants must
-               agree point for point at the full shape.
+               with 15 x 15; hotspot 48 x 144 with 4 sweeps and 224 x 324
+               with 12; expdist 384 x 320 and 5000 x 3000 points; dedisp 12
+               channels x 24 DMs and 96 x 160), and on three configs at the
+               full shapes; within the JAX package's tolerance and the
+               tighter ``kernel.PLAIN_TOL``, with a bf16-vs-f32 control for
+               every kernel with a bf16 option.  pnpoly and dedisp (both
+               acc_dtypes) and hotspot in bf16 are held exactly (0
+               mismatching outputs; hotspot on the whole domain), and
+               pnpoly's twelve method variants must agree point for point
+               at the full shape.
 4. main      — the GEMM path, ``repro_torch.quickstart.main``: random search
                and a genetic algorithm over ``gemm_h100`` at 4096^3, every
                config timed on the card through the kernel, the winner
                checked, a sampled table and its speedup over the median.
 5. paths     — for ``flash_attention_h100`` (32 q heads, 8 kv heads, 4096 x
                4096, d 128, causal), ``nbody_h100`` (131 072 bodies),
-               ``pnpoly_h100`` (2 000 000 points, a 600-gon) and
-               ``conv2d_h100`` (4096 x 4096, 15 x 15): the same quickstart,
-               then ``repro_torch.landscape.main``, which measures the whole
-               space and prints the paper's five landscape results on it.
+               ``pnpoly_h100`` (2 000 000 points, a 600-gon),
+               ``conv2d_h100`` (4096 x 4096, 15 x 15), ``hotspot_h100``
+               (600 sweeps of 3248 x 3248), ``expdist_h100`` (65 536 x
+               65 536 points) and ``dedisp_h100`` (1536 channels, 2048 DMs,
+               4096 of 12 288 samples): the same quickstart, then
+               ``repro_torch.landscape.main``, which measures the whole
+               space (attention, nbody, pnpoly, conv2d) or, for the three
+               sampled problems, ``--samples`` distinct random configs
+               (default 1000; hotspot at most ``HOTSPOT_SAMPLES``), and
+               prints the paper's five landscape results on the table.
                Each path's launch counts are set to 0 just before it and
-               read just after; its kernel must have launched, and no
-               admitted config may be invalid.
+               read just after; its kernel must have launched, no admitted
+               config may be invalid, and the winner must hold against the
+               oracle (nbody's and expdist's against an f64 oracle too).
 6. timing    — per kernel at its full shape: the default config, the plain
                version and, where one exists, one PyTorch library call
                computing the same function (``torch.addmm``;
                ``scaled_dot_product_attention``; ``F.conv2d``), a yardstick
                the port never calls; each the median of cold-L2 CUDA-event
-               repeats.
+               repeats.  No single PyTorch call computes nbody, pnpoly,
+               hotspot (600 dependent sweeps), expdist or dedisp (each
+               several ops), so their ``library_ms`` is null.
 
 Prints the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
-line.  Any failure exits non-zero without the ``ok`` line, as does a host
+line.  A kernel's ``launches`` counts its wrapper's calls on its path;
+``device_launches`` counts the CUDA kernels those calls issued (hotspot
+ceil(600 / tt) a call, expdist two, conv2d two where a bf16 filter is first
+rounded, the others one).  Any failure exits non-zero without the ``ok`` line, as does a host
 with no CUDA device or a directory without the rest of the repository.
 """
 
@@ -62,8 +78,20 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 #: H100 SXM data sheet peaks (dense), for the bound
 PEAK_BF16_TC = 989e12     # FLOP/s, bf16 on the tensor cores
-PEAK_F32 = 67e12          # FLOP/s, f32 outside the tensor cores
 PEAK_HBM = 3.35e12        # bytes/s
+#: f32 instructions outside the tensor cores: 128 per clock per SM x 132 SMs
+#: x 1.98 GHz, an add, a multiply and a fused multiply-add one each (the data
+#: sheet's 67 TFLOP/s counts an FMA as two)
+PEAK_F32_INST = 128 * 132 * 1.98e9
+#: the special-function units (MUFU: ex2, rcp, rsqrt): 16 results per clock
+#: per SM (CUDA C++ Programming Guide, arithmetic instruction throughput,
+#: cc 9.0) x 132 SMs x 1.98 GHz
+PEAK_SFU = 16 * 132 * 1.98e9
+#: configs the hotspot path's landscape measures at most: a hotspot config
+#: costs about 0.49 s to measure (seven calls of 29-115 ms), so the 1000
+#: that expdist and dedisp take would bring the script to about 1260 s of
+#: its 1200 (PERF.md section 4)
+HOTSPOT_SAMPLES = 200
 
 
 @contextmanager
@@ -95,11 +123,14 @@ def covering_configs(space, n: int, seed: int) -> list[dict]:
     return cfgs
 
 
-def bound(flops: float, f32_ops: float, nbytes: float) -> tuple[float, str]:
+def bound(flops: float, f32_inst: float, nbytes: float,
+          sfu_ops: float = 0.0) -> tuple[float, str]:
     """The least time the card could take: the larger of the operations
-    (tensor-core products, and the f32 work beside them) over their peak
-    rates and the bytes over the memory rate."""
-    ops_s = max(flops / PEAK_BF16_TC, f32_ops / PEAK_F32)
+    (tensor-core FLOPs, the f32 instructions beside them with an FMA
+    counted once, and the special-function results) over their peak rates
+    and the bytes over the memory rate."""
+    ops_s = max(flops / PEAK_BF16_TC, f32_inst / PEAK_F32_INST,
+                sfu_ops / PEAK_SFU)
     bytes_s = nbytes / PEAK_HBM
     return max(ops_s, bytes_s), "operations" if ops_s >= bytes_s else "bytes"
 
@@ -112,6 +143,12 @@ def kernel_table() -> dict:
     from repro_torch.kernels.attention import ops as fops
     from repro_torch.kernels.conv2d import kernel as ckernel
     from repro_torch.kernels.conv2d import ops as cops
+    from repro_torch.kernels.dedisp import kernel as dkernel
+    from repro_torch.kernels.dedisp import ops as dops
+    from repro_torch.kernels.expdist import kernel as ekernel
+    from repro_torch.kernels.expdist import ops as eops
+    from repro_torch.kernels.hotspot import kernel as hkernel
+    from repro_torch.kernels.hotspot import ops as hops
     from repro_torch.kernels.matmul import kernel, ops
     from repro_torch.kernels.nbody import kernel as nkernel
     from repro_torch.kernels.nbody import ops as nops
@@ -121,13 +158,20 @@ def kernel_table() -> dict:
             "flash_attention": (fkernel, fops.attention),
             "nbody": (nkernel, nops.nbody),
             "pnpoly": (pkernel, pops.pnpoly),
-            "conv2d": (ckernel, cops.conv2d)}
+            "conv2d": (ckernel, cops.conv2d),
+            "hotspot": (hkernel, hops.hotspot),
+            "expdist": (ekernel, eops.expdist),
+            "dedisp": (dkernel, dops.dedisp)}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="smoke run of the port on a card")
     ap.add_argument("--budget", type=int, default=100,
                     help="evaluations per tuner in the GEMM path (>= 40)")
+    ap.add_argument("--samples", type=int, default=1000,
+                    help="configs landscape.main measures of each sampled "
+                         "space, hotspot's at most HOTSPOT_SAMPLES (the "
+                         "paper's is 10 000)")
     ap.add_argument("--json", default=None,
                     help="also write every measurement to this file")
     args = ap.parse_args(argv)
@@ -150,6 +194,16 @@ def main(argv=None) -> int:
     from repro_torch.kernels.conv2d import kernel as ckernel
     from repro_torch.kernels.conv2d import ops as cops
     from repro_torch.kernels.conv2d.space import Conv2dProblem
+    from repro_torch.kernels.dedisp import kernel as dkernel
+    from repro_torch.kernels.dedisp import ops as dops
+    from repro_torch.kernels.dedisp.space import DedispProblem
+    from repro_torch.kernels.expdist import kernel as ekernel
+    from repro_torch.kernels.expdist import ops as eops
+    from repro_torch.kernels.expdist.ref import expdist_reference
+    from repro_torch.kernels.expdist.space import ExpdistProblem
+    from repro_torch.kernels.hotspot import kernel as hkernel
+    from repro_torch.kernels.hotspot import ops as hops
+    from repro_torch.kernels.hotspot.space import HotspotProblem
     from repro_torch.kernels.matmul import kernel, ops
     from repro_torch.kernels.matmul.space import SMALL_SHAPE, GemmProblem
     from repro_torch.kernels.nbody import kernel as nkernel
@@ -172,9 +226,12 @@ def main(argv=None) -> int:
     def counts() -> dict:
         return {name: op.launches for name, (_, op) in KERNELS.items()}
 
+    def device_counts() -> dict:
+        return {name: op.device_launches for name, (_, op) in KERNELS.items()}
+
     def zero_counts() -> None:
         for _, op in KERNELS.values():
-            op.launches = 0
+            op.launches = op.device_launches = 0
 
     with phase("probe"):
         info = devmod.probe("cuda")
@@ -194,6 +251,9 @@ def main(argv=None) -> int:
     nfull = NbodyProblem(device="cuda")
     pfull = PnpolyProblem(device="cuda")
     cfull = Conv2dProblem(device="cuda")
+    hfull = HotspotProblem(device="cuda")
+    efull = ExpdistProblem(device="cuda")
+    dfull = DedispProblem(device="cuda")
     with phase("build"):
         built = _build.build_all({m.SOURCE: m.VARIANTS
                                   for m, _ in KERNELS.values()})
@@ -203,6 +263,9 @@ def main(argv=None) -> int:
         nkernel.library()
         pkernel.libraries()
         ckernel.libraries()
+        hkernel.library()
+        ekernel.library()
+        dkernel.library()
         n_nvcc = sum(len(m.VARIANTS) for m, _ in KERNELS.values())
         print(f"build: {build_s:.1f} s ({n_nvcc} nvcc processes in "
               f"parallel, {len(built)} sources)")
@@ -236,6 +299,15 @@ def main(argv=None) -> int:
                                    for u in ckernel.UNROLL})
                 for rc in ckernel.ROW_CHUNK for a in ("f32", "bf16")
                 for fs in (0, 1)},
+            # every compiled tile of the three kernels of the sampled spaces
+            "hotspot": {(u, a, ps): hkernel.tile_attributes(u, a, ps)
+                        for u in hkernel.UNROLL_T for a in ("f32", "bf16")
+                        for ps in (0, 1)},
+            "expdist": {(u, e, d): ekernel.tile_attributes(u, e, d)
+                        for u in ekernel.UNROLL_J for e in ("exp", "exp2")
+                        for d in ("f32", "bf16")},
+            "dedisp": {(u, st, a): dkernel.tile_attributes(u, st, a)
+                       for u, st in dkernel.tiles() for a in ("f32", "bf16")},
         }
         for name, attrs in tiles.items():
             spills = [(t, a) for t, a in attrs.items() if a["local_bytes"]]
@@ -244,7 +316,7 @@ def main(argv=None) -> int:
                   f"{min(regs)}..{max(regs)}, spilling: {spills or 'none'}")
             if spills:
                 failures.append(f"{name} tiles spill: {spills}")
-            # the three f32 kernels' spaces admit blocks of MAX_THREADS
+            # the six f32 kernels' spaces admit blocks of MAX_THREADS
             most = getattr(KERNELS[name][0], "MAX_THREADS", None)
             short = [t for t, a in attrs.items()
                      if most and a["max_threads"] < most]
@@ -361,22 +433,84 @@ def main(argv=None) -> int:
         before = pops.pnpoly.launches
         got = pops.pnpoly(pts, x["poly"], cfg)
         launched_once(pops.pnpoly, before)
-        want = pkernel.pnpoly_plain(pts, x["poly"], **cfg)
-        if got.shape != want.shape or got.dtype != torch.int32:
+        if got.dtype != torch.int32:
             raise SystemExit(f"chip_smoke: bad pnpoly output for {cfg}")
+        exact("pnpoly", cfg, got, pkernel.pnpoly_plain(pts, x["poly"], **cfg),
+              None, f"{tuple(x['poly'].shape)} ")
+        return got
+
+    def exact(name: str, cfg: dict, got, want, f32_plain, label: str) -> None:
+        """``got`` (the kernel) against ``want`` (its plain version), output
+        for output: any mismatching output fails the run.  ``f32_plain``,
+        when given, computes the plain version with an f32 accumulator: the
+        control that the bf16 result is not the f32 one."""
+        if got.shape != want.shape or got.dtype != want.dtype \
+                or not torch.isfinite(got).all():
+            raise SystemExit(f"chip_smoke: bad {name} output for {cfg}")
         bad = int((got != want).sum())
-        w = worst["pnpoly"]
+        w = worst[name]
         w["mismatches"] += bad
         w["max_abs_err"] = max(w["max_abs_err"],
                                float((got - want).abs().max()))
         w["rel_l2"] = max(w["rel_l2"], quickstart.rel_l2(got, want))
         w["calls"] += 1
-        print(f"  mismatches {bad} of {got.numel()} (tol 0) "
-              f"{tuple(x['poly'].shape)} {cfg}")
+        note = ""
+        if f32_plain is not None:
+            far = int((got != f32_plain()).sum())
+            note = f" vs f32-acc plain {far} differ"
+            w["controls"] += 1
+            if not far:
+                failures.append(f"{name}: bf16 not told apart from f32 for "
+                                f"{cfg}")
+        print(f"  mismatches {bad} of {got.numel()} (tol 0){note} "
+              f"{label}{cfg}")
         if bad:
-            failures.append(f"pnpoly disagrees with its plain version on "
-                            f"{bad} points for {cfg}")
-        return got
+            failures.append(f"{name} disagrees with its plain version on "
+                            f"{bad} outputs for {label}{cfg}")
+
+    def hotspot_parity(cfg: dict, x: dict) -> None:
+        """On the whole domain: exactly in bf16, within ``PLAIN_TOL`` in
+        f32."""
+        temp, power, n = x["temp"], x["power"], x["n_sweeps"]
+        before = hops.hotspot.launches
+        got = hops.hotspot(temp, power, n, cfg)
+        launched_once(hops.hotspot, before)
+        want = hkernel.hotspot_plain(temp, power, n, **cfg)
+        label = f"{tuple(temp.shape)} x{n} sweeps "
+        if cfg["acc_dtype"] == "bf16":
+            exact("hotspot", cfg, got, want,
+                  lambda: hkernel.hotspot_plain(
+                      temp, power, n, **dict(cfg, acc_dtype="f32")), label)
+        else:
+            hold("hotspot", "hotspot_h100", cfg, got, want, None, label)
+
+    def expdist_parity(cfg: dict, x: dict) -> None:
+        a, b, sa, sb = x["a"], x["b"], x["sa"], x["sb"]
+        before = eops.expdist.launches
+        got = eops.expdist(a, b, sa, sb, cfg)
+        launched_once(eops.expdist, before)
+        control = None
+        if cfg["compute_dtype"] == "bf16":
+            def control():
+                return ekernel.expdist_plain(
+                    a, b, sa, sb, **dict(cfg, compute_dtype="f32"))
+        hold("expdist", "expdist_h100", cfg, got,
+             ekernel.expdist_plain(a, b, sa, sb, **cfg), control,
+             f"{a.shape[1]}x{b.shape[1]} ")
+
+    def dedisp_parity(cfg: dict, x: dict) -> None:
+        """Output for output, in both acc_dtypes."""
+        xx, dl, t_out = x["x"], x["delays"], x["t_out"]
+        before = dops.dedisp.launches
+        got = dops.dedisp(xx, dl, t_out, cfg)
+        launched_once(dops.dedisp, before)
+        control = None
+        if cfg["acc_dtype"] == "bf16":
+            def control():
+                return dkernel.dedisp_plain(xx, dl, t_out,
+                                            **dict(cfg, acc_dtype="f32"))
+        exact("dedisp", cfg, got, dkernel.dedisp_plain(xx, dl, t_out, **cfg),
+              control, f"{tuple(xx.shape)} -> {tuple(got.shape)} ")
 
     with phase("parity"):
         x = small.make_inputs(seed=3, small=True)
@@ -479,6 +613,33 @@ def main(argv=None) -> int:
         for cfg in cbig:
             conv2d_parity(cfg, xcf)
 
+        for prob_cls, shapes, parity, full_prob in (
+                (HotspotProblem, ({"h": 200, "w": 300, "n_total": 12},),
+                 hotspot_parity, hfull),
+                (ExpdistProblem, ({"ka": 5000, "kb": 3000},), expdist_parity,
+                 efull),
+                (DedispProblem, ({"c": 96, "d": 160, "t_out": 1024,
+                                  "t_in": 2048, "dm_step": 0.5},),
+                 dedisp_parity, dfull)):
+            for shape in (prob_cls.small_shape,) + shapes:
+                prob = prob_cls(shape=shape, device="cuda")
+                cfgs = covering_configs(prob.space, 12, seed=5)
+                print(f"{prob.name}: {len(cfgs)} configs at {prob.shape}")
+                xs = prob.make_inputs(seed=3, small=False)
+                for cfg in cfgs:
+                    parity(cfg, xs)
+        xhf = hfull.make_inputs(seed=4, small=False)
+        xef = efull.make_inputs(seed=4, small=False)
+        xdf = dfull.make_inputs(seed=4, small=False)
+        for prob, parity, xs, dcfg in (
+                (hfull, hotspot_parity, xhf, hops.DEFAULT_CONFIG),
+                (efull, expdist_parity, xef, eops.DEFAULT_CONFIG),
+                (dfull, dedisp_parity, xdf, dops.DEFAULT_CONFIG)):
+            big = [dict(dcfg)] + prob.space.sample_distinct(2, 9)
+            print(f"{prob.name}: {len(big)} configs at {prob.shape}")
+            for cfg in big:
+                parity(cfg, xs)
+
         for name, w in worst.items():
             if name != "pnpoly" and not w["controls"]:
                 failures.append(f"{name}: no bf16 config ran the control")
@@ -492,7 +653,7 @@ def main(argv=None) -> int:
                                   sample=64)
         main_s = time.perf_counter() - t0
         launched = counts()
-        launches = launched["gemm"]
+        launches, gemm_issued = launched["gemm"], device_counts()["gemm"]
         trials = [t for r in res["runs"].values() for t in r.trials] \
             + list(res["sampled"])
         bad = [(t.config, t.info) for t in trials if not t.ok]
@@ -516,26 +677,30 @@ def main(argv=None) -> int:
         record["trials"] = [{"config": t.config, "info": t.info}
                             for t in trials]
 
-    def run_path(problem: str, name: str, prob, winner_parity) -> dict:
+    def run_path(problem: str, name: str, prob, winner_parity,
+                 samples: int | None = None) -> dict:
         """One problem's path: the quickstart (random search and GA, budget
         60 each, 64 sampled configs), then ``landscape.main`` over the
-        whole space, with the launch counts set to 0 just before and read
-        just after; then the winner against its plain version."""
+        whole space, or ``samples`` configs of a sampled one, with the counts
+        set to 0 just before and read just after; then the winner against
+        its plain version."""
         zero_counts()
         t0 = time.perf_counter()
         with trace.tracing():
             res = quickstart.main(problem=problem, device="cuda", budget=60,
                                   sample=64)
-            land = landscape.main(problem=problem, device="cuda")
+            land = landscape.main(problem=problem, device="cuda",
+                                  samples=samples)
         path_s = time.perf_counter() - t0
-        launched = counts()
+        launched, issued = counts(), device_counts()
         trials = [t for r in res["runs"].values() for t in r.trials] \
             + list(res["sampled"]) + list(land["trials"])
         bad = [(t.config, t.info) for t in trials if not t.ok]
-        print(f"kernel launches in the {name} path: {launched}; "
-              f"{len(trials)} trials, {len(bad)} invalid "
+        print(f"kernel launches in the {name} path: {launched}; CUDA "
+              f"kernels issued: {issued}; {len(trials)} trials, {len(bad)} "
+              f"invalid "
               f"({land['invalid']} of {len(land['trials'])} in the "
-              f"exhaustive table)")
+              f"{land['table'].protocol} table)")
         if launched[name] <= 0:
             raise SystemExit(f"chip_smoke: the {name} path launched no "
                              f"kernel")
@@ -551,9 +716,9 @@ def main(argv=None) -> int:
         best = res["best"]
         winner_parity(best.config)          # the winner, full shape
         table = land["table"]
-        ex_best_enc, ex_best_s = table.best()
+        ex_best_enc, table_best_s = table.best()
         cfgs_t = [prob.space.decode(c) for c in table.configs]
-        print(f"  exhaustive best {ex_best_s * 1e3:.4f} ms "
+        print(f"  {table.protocol} table's best {table_best_s * 1e3:.4f} ms "
               f"{prob.space.decode(ex_best_enc)}; tuners' best "
               f"{best.objective * 1e3:.4f} ms")
         record[name] = {
@@ -567,13 +732,16 @@ def main(argv=None) -> int:
             "trials": [{"config": t.config, "info": t.info}
                        for t in trials]}
         return {"res": res, "land": land, "launches": launched[name],
-                "best": best, "ex_best_s": ex_best_s, "configs": cfgs_t}
+                "device_launches": issued[name],
+                "best": best, "table_best_s": table_best_s, "configs": cfgs_t,
+                "protocol": table.protocol}
 
     with phase("attention"):
         apath = run_path("flash_attention_h100", "flash_attention", ffull,
                          lambda c: attention_parity(c, xaf, True))
         abest, alaunches = apath["best"], apath["launches"]
-        ex_best_s = apath["ex_best_s"]
+        aissued = apath["device_launches"]
+        table_best_s = apath["table_best_s"]
         cfgs_t, objs = apath["configs"], apath["land"]["table"].objectives
         f32_h1 = min((o, i) for i, (c, o) in enumerate(zip(cfgs_t, objs))
                      if c["acc_dtype"] == "f32" and c["block_h"] == 1)
@@ -604,38 +772,102 @@ def main(argv=None) -> int:
         cpath = run_path("conv2d_h100", "conv2d", cfull,
                          lambda c: conv2d_parity(c, xcf))
 
+    with phase("hotspot"):
+        hpath = run_path("hotspot_h100", "hotspot", hfull,
+                         lambda c: hotspot_parity(c, xhf),
+                         min(args.samples, HOTSPOT_SAMPLES))
+
+    with phase("expdist"):
+        epath = run_path("expdist_h100", "expdist", efull,
+                         lambda c: expdist_parity(c, xef), args.samples)
+        # the winner's distance to the oracle in f32 (the quickstart's
+        # check) and in f64, which must hold too
+        x0 = efull.make_inputs(seed=0, small=False)
+        got = efull.run_kernel(epath["best"].config, x0)
+        f64 = expdist_reference(*(x0[k].double()
+                                  for k in ("a", "b", "sa", "sb")))
+        e_f64 = quickstart.rel_l2(got, f64)
+        e_tol = quickstart.tolerance("expdist_h100", epath["best"].config)
+        print(f"  expdist winner vs the f32 oracle "
+              f"{epath['res']['rel_l2']:.3e}, vs an f64 oracle {e_f64:.3e} "
+              f"(tolerance {e_tol:g})")
+        if not e_f64 <= e_tol:
+            failures.append(f"expdist winner misses the f64 oracle: "
+                            f"{e_f64:.3e} > {e_tol:g}")
+        record["expdist"]["winner_rel_l2"] = {"f32": epath["res"]["rel_l2"],
+                                              "f64": e_f64}
+        del x0, got, f64
+
+    with phase("dedisp"):
+        dpath = run_path("dedisp_h100", "dedisp", dfull,
+                         lambda c: dedisp_parity(c, xdf), args.samples)
+
+    # Operations are counted from the reference's expression as the card
+    # issues them: an f32 add, multiply or fused multiply-add is one
+    # instruction, the expression's multiply-then-add pairs fused
     m, n, k = (full.shape[d] for d in "mnk")
     flops = 2.0 * m * n * k
     # A, B, C read once and the output written once, bf16; the epilogue's
-    # f32 work runs beside the tensor cores
-    bound_s, bound_by = bound(flops, 3.0 * m * n,
+    # alpha * acc + beta * c (a multiply and a multiply-add an output) runs
+    # beside the tensor cores
+    bound_s, bound_by = bound(flops, 2.0 * m * n,
                               2.0 * (m * k + k * n + m * n + m * n))
     hq, hkv, tq, tk, d = (ffull.shape[s] for s in
                           ("hq", "hkv", "tq", "tk", "d"))
     # the visible (row, column) pairs of the causal mask: QK^T and PV take
-    # 2 * d FLOP each on the tensor cores; scale, mask, max, exp and sum
-    # about 5 f32 operations; q, k, v read and the output written once
+    # 2 * d FLOP each on the tensor cores; scale, mask, max, the exponent's
+    # shift and the sum about 5 f32 instructions and the exponential one
+    # special-function result; q, k, v read and the output written once
     pairs = hq * sum(min(tk, max(0, r + tk - tq + 1)) for r in range(tq))
     abound_s, abound_by = bound(4.0 * d * pairs, 5.0 * pairs,
-                                2.0 * d * (2 * hq * tq + 2 * hkv * tk))
-    # the three f32 kernels use no tensor core.  nbody: N^2 pairs at 20 FLOP
-    # each (the CUDA SDK's count per interaction); pos and mass read once,
-    # the (3, N) output written once
+                                2.0 * d * (2 * hq * tq + 2 * hkv * tk),
+                                sfu_ops=float(pairs))
+    # the six f32 kernels use no tensor core.  nbody: N^2 pairs at 17 f32
+    # instructions each with rsqrt_method approx, the cheaper (three
+    # differences; r^2's multiply, two multiply-adds and the softening add;
+    # the Newton step's three multiplies and a multiply-add; inv^3's two
+    # multiplies; the mass's multiply; three multiply-adds into the sums)
+    # and one rsqrt; pos and mass read once, the (3, N) output written once
     nb = nfull.shape["n"]
-    nbound_s, nbound_by = bound(0.0, 20.0 * nb * nb, 4.0 * (4 * nb + 3 * nb))
-    # pnpoly: N x V point-edge pairs at about 7 operations each (two
-    # comparisons, the crossing's subtract, multiply and add, its compare,
-    # the parity update); the points and polygon read once, the int32
-    # flags written once
+    nbound_s, nbound_by = bound(0.0, 17.0 * nb * nb, 4.0 * (4 * nb + 3 * nb),
+                                sfu_ops=float(nb) * nb)
+    # pnpoly: N x V point-edge pairs at 6 instructions each (the two
+    # comparisons with the point's y and their xor, two; the crossing's
+    # subtract and multiply-add; its comparison; the parity update); the
+    # points and polygon read once, the int32 flags written once
     pn, pv = pfull.shape["n"], pfull.shape["v"]
-    pbound_s, pbound_by = bound(0.0, 7.0 * pn * pv,
+    pbound_s, pbound_by = bound(0.0, 6.0 * pn * pv,
                                 4.0 * (2 * pn + 2 * pv + pn))
-    # conv2d: every output takes F^2 multiply-adds (2 FLOP each); the image
-    # and filter read once, the output written once
+    # conv2d: every output takes F^2 multiply-adds; the image and filter
+    # read once, the output written once
     ch, cw, cf = cfull.shape["h"], cfull.shape["w"], cfull.shape["fh"]
     coh, cow = ch - cf + 1, cw - cf + 1
-    cbound_s, cbound_by = bound(0.0, 2.0 * coh * cow * cf * cf,
+    cbound_s, cbound_by = bound(0.0, 1.0 * coh * cow * cf * cf,
                                 4.0 * (ch * cw + cf * cf + coh * cow))
+    # hotspot: every cell of the padded domain takes 9 f32 instructions a
+    # sweep (the two second differences, an add and a multiply-add each;
+    # amb - t; the three weighted terms, three multiply-adds; the step, one
+    # multiply-add); temp and power read once, the domain written once
+    hh, hw = xhf["temp"].shape
+    hn = xhf["n_sweeps"]
+    hbound_s, hbound_by = bound(0.0, 9.0 * hh * hw * hn, 4.0 * 3 * hh * hw)
+    # expdist: every pair takes 10 f32 instructions (two differences; r^2's
+    # multiply and multiply-add; sa^2 + sb^2 and its doubling; the
+    # division's two refining multiply-adds; the exponent's scaling by
+    # log2(e); the running sum) and two special-function results (the
+    # division's reciprocal and the exponential's exp2); a, b, sa, sb read
+    # once and the scalar written once
+    eka, ekb = efull.shape["ka"], efull.shape["kb"]
+    epairs = float(eka) * ekb
+    ebound_s, ebound_by = bound(0.0, 10.0 * epairs,
+                                4.0 * (3 * eka + 3 * ekb + 1),
+                                sfu_ops=2.0 * epairs)
+    # dedisp: one add per channel, DM and sample out; x and the delays read
+    # once, the output written once
+    (dc, dt_in), (_, dd) = xdf["x"].shape, xdf["delays"].shape
+    dto = xdf["t_out"]
+    dbound_s, dbound_by = bound(0.0, float(dc) * dd * dto,
+                                4.0 * (dc * dt_in + dc * dd + dd * dto))
 
     with phase("timing"):
         flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32,
@@ -715,7 +947,22 @@ def main(argv=None) -> int:
                  # warm-up
                  lambda: F.conv2d(xcf["image"][None, None],
                                   xcf["filt"][None, None]),
-                 (cbound_s, cbound_by), "conv2d/kernel.py:86")):
+                 (cbound_s, cbound_by), "conv2d/kernel.py:86"),
+                ("hotspot", hfull, hpath, hops.DEFAULT_CONFIG,
+                 lambda: hkernel.hotspot_plain(xhf["temp"], xhf["power"],
+                                               xhf["n_sweeps"],
+                                               **hops.DEFAULT_CONFIG),
+                 None, (hbound_s, hbound_by), "hotspot/kernel.py:70"),
+                ("expdist", efull, epath, eops.DEFAULT_CONFIG,
+                 lambda: ekernel.expdist_plain(xef["a"], xef["b"], xef["sa"],
+                                               xef["sb"],
+                                               **eops.DEFAULT_CONFIG),
+                 None, (ebound_s, ebound_by), "expdist/kernel.py:71"),
+                ("dedisp", dfull, dpath, dops.DEFAULT_CONFIG,
+                 lambda: dkernel.dedisp_plain(xdf["x"], xdf["delays"],
+                                              xdf["t_out"],
+                                              **dops.DEFAULT_CONFIG),
+                 None, (dbound_s, dbound_by), "dedisp/kernel.py:73")):
             dflt = prob.evaluate(dcfg)
             if not dflt.ok:
                 raise SystemExit(f"chip_smoke: {name} default config "
@@ -725,11 +972,13 @@ def main(argv=None) -> int:
             lib_t = None if lib is None else statistics.median(
                 cuda_event_seconds(lib, repeats=10, warmup=3, flush=flush))
             tuned = path["best"]
+            kind = "exhaustive" if path["protocol"] == "exhaustive" \
+                else "sampled"
             print(f"{name} tuned config {tuned.config}")
             print(f"  median {tuned.objective * 1e3:.4f} ms = "
                   f"{b_s / tuned.objective:.1%} of the {b_s * 1e3:.4f} ms "
-                  f"bound ({b_by}); exhaustive best "
-                  f"{path['ex_best_s'] * 1e3:.4f} ms")
+                  f"bound ({b_by}); {path['protocol']} table's best "
+                  f"{path['table_best_s'] * 1e3:.4f} ms")
             print(f"{name} default config {dflt.objective * 1e3:.4f} ms; "
                   f"plain version {plain_t * 1e3:.3f} ms; library_ms "
                   f"{'n/a' if lib_t is None else f'{lib_t * 1e3:.4f}'} ms")
@@ -738,6 +987,7 @@ def main(argv=None) -> int:
                 "source": f"src/repro_torch/csrc/{name}.cu",
                 "replaces": f"src/repro/kernels/{replaces}",
                 "launches": path["launches"],
+                "device_launches": path["device_launches"],
                 "max_abs_err": worst[name]["max_abs_err"],
                 "ms": dflt.objective * 1e3, "plain_ms": plain_t * 1e3,
                 "bound_ms": b_s * 1e3, "bound_by": b_by,
@@ -747,14 +997,15 @@ def main(argv=None) -> int:
                 "shape": list(prob.shape.values()), "default_config": dcfg,
                 "tuned_ms": tuned.objective * 1e3,
                 "tuned_config": tuned.config,
-                "exhaustive_best_ms": path["ex_best_s"] * 1e3,
-                "build_s": build_s})
+                f"{kind}_best_ms": path["table_best_s"] * 1e3,
+                "protocol": path["protocol"], "build_s": build_s})
 
     lines = [
         {"name": "gemm", "route": "cuda",
          "source": "src/repro_torch/csrc/gemm.cu",
          "replaces": "src/repro/kernels/matmul/kernel.py:71",
-         "launches": launches, "max_abs_err": worst["gemm"]["max_abs_err"],
+         "launches": launches, "device_launches": gemm_issued,
+         "max_abs_err": worst["gemm"]["max_abs_err"],
          "ms": default.objective * 1e3, "plain_ms": plain_s * 1e3,
          "bound_ms": bound_s * 1e3, "bound_by": bound_by,
          "library_ms": lib_s * 1e3,
@@ -765,7 +1016,7 @@ def main(argv=None) -> int:
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/attention/kernel.py:93",
-         "launches": alaunches,
+         "launches": alaunches, "device_launches": aissued,
          "max_abs_err": worst["flash_attention"]["max_abs_err"],
          "ms": adefault.objective * 1e3, "plain_ms": aplain_s * 1e3,
          "bound_ms": abound_s * 1e3, "bound_by": abound_by,
@@ -774,7 +1025,7 @@ def main(argv=None) -> int:
          "shape": [hq, hkv, tq, tk, d],
          "default_config": fops.DEFAULT_CONFIG,
          "tuned_ms": at_best * 1e3, "tuned_config": abest.config,
-         "exhaustive_best_ms": ex_best_s * 1e3, "build_s": build_s},
+         "exhaustive_best_ms": table_best_s * 1e3, "build_s": build_s},
     ] + f32_lines
     record["kernels"] = lines
     record["speedup_over_median"] = res["speedup"]

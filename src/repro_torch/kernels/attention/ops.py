@@ -1,5 +1,7 @@
 """Public attention op: the Hopper kernel for CUDA tensors, the plain version
-for CPU tensors, and a count of kernel launches (``attention.launches``)."""
+for CPU tensors, a count of kernel launches (``attention.launches``, one a
+call) and one of the CUDA kernels the calls issue
+(``attention.device_launches``, also one a call)."""
 
 from __future__ import annotations
 
@@ -75,7 +77,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     kernel.launch(q, k, v, out, cfg, causal, scale)
     attention.launches += 1
+    attention.device_launches += 1
     return out
 
 
 attention.launches = 0
+attention.device_launches = 0

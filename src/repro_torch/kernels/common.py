@@ -37,12 +37,20 @@ def round_up(a: int, b: int) -> int:
 
 def inputs_from_numpy(arrays: dict, device=None,
                       dtype: torch.dtype = torch.bfloat16) -> dict:
-    """The port's inputs from numpy ones: arrays become ``dtype`` tensors
-    (default bf16) on ``device`` (default ``"cuda"``), other values pass
-    through.  With it the tests feed both packages the same values."""
+    """The port's inputs from numpy ones: floating arrays become ``dtype``
+    tensors (default bf16) and integer arrays int32 tensors (a table of
+    indices or delays stays integral), on ``device`` (default ``"cuda"``);
+    other values pass through.  With it the tests feed both packages the
+    same values."""
     dev = resolve(device)
-    return {k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
-            .to(dev, dtype) if isinstance(v, np.ndarray) else v
+
+    def tensor(v: np.ndarray) -> torch.Tensor:
+        if np.issubdtype(v.dtype, np.integer):
+            return torch.from_numpy(np.ascontiguousarray(v, np.int32)).to(dev)
+        return torch.from_numpy(np.ascontiguousarray(v, np.float32)) \
+            .to(dev, dtype)
+
+    return {k: tensor(v) if isinstance(v, np.ndarray) else v
             for k, v in arrays.items()}
 
 

@@ -1,6 +1,8 @@
 """Public 2-D convolution op: the Hopper kernel for CUDA tensors, the plain
-version for CPU tensors, and a count of kernel launches
-(``conv2d.launches``)."""
+version for CPU tensors, a count of kernel launches (``conv2d.launches``, one
+a call) and one of the CUDA kernels the calls issue
+(``conv2d.device_launches``: two where a bf16 filter is first rounded for
+constant memory, else one)."""
 
 from __future__ import annotations
 
@@ -75,7 +77,10 @@ def conv2d(image: torch.Tensor, filt: torch.Tensor,
                       dtype=torch.float32, device=image.device)
     kernel.launch(image, filt, out, cfg)
     conv2d.launches += 1
+    conv2d.device_launches += 1 + int(cfg["acc_dtype"] == "bf16"
+                                      and not cfg["filter_smem"])
     return out
 
 
 conv2d.launches = 0
+conv2d.device_launches = 0

@@ -1,0 +1,120 @@
+"""The ``hotspot_h100`` problem: a Hopper search space and a measured
+evaluator.
+
+The objective is the whole simulation, ``n_total`` sweeps in ceil(n /
+tt) launches.  The space keeps the reference's parameters and their
+meanings (``csrc/hotspot.cu``), with Hopper's ranges:
+
+* ``block_h`` (8 to 256) x ``block_w`` (8 to 1024): the output tile of
+  one block, the reference's menus.  A block runs min(block_w, 128)
+  threads along a row and as many rows as fit in 512 threads.
+* ``tt`` (1 to 10): sweeps per launch, with a halo ``tt`` deep.
+* ``unroll_t`` (1 to 10): sweeps per unrolled chunk of the sweep loop; it
+  divides ``tt`` (the reference's constraint), and the last launch snaps it
+  down to a divisor of its own sweep count.
+* ``power_smem``: the power tile resident in shared memory beside the two
+  temperature buffers, or read from device memory at every sweep.  It is
+  the reference's ``keep_power_vmem``, renamed for what it means here.
+* ``acc_dtype`` (f32, bf16) and ``grid_order`` (row- or column-major block
+  raster), as the reference.
+
+The tile with its halo, two buffers of it and the power tile with
+``power_smem``, must fit in 227 KB of shared memory: that replaces the
+reference's VMEM budget.  The reference's ``halo_sane`` (2 tt <= block_h +
+8) is dropped: the kernel launches those tiles, at the cost of halo work.
+Blocks mask the ragged edge, so no tile needs to divide the domain.  The
+constraints admit exactly the configs the compiled library can launch.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ...core.space import Config, Constraint, Param, SearchSpace
+from ..common import SMEM_PER_BLOCK, KernelProblem, inputs_from_numpy
+from . import kernel, ops, ref
+
+#: the JAX package's small correctness shape (its ``make_inputs(small=True)``
+#: takes 4 sweeps on a 40 x 136 domain)
+SMALL_SHAPE = {"h": 40, "w": 136, "n_total": 4}
+
+
+def build_space() -> SearchSpace:
+    """The ``hotspot_h100`` space (the same at every shape)."""
+    params = [
+        Param("block_h", kernel.BLOCK_H),
+        Param("block_w", kernel.BLOCK_W),
+        Param("tt", kernel.TT),
+        Param("unroll_t", kernel.UNROLL_T),
+        Param("power_smem", (0, 1)),
+        Param("acc_dtype", ("f32", "bf16")),
+        Param("grid_order", ("rm", "cm")),
+    ]
+
+    def smem_ok(c):
+        return kernel.smem_bytes(c["block_h"], c["block_w"], c["tt"],
+                                 c["power_smem"]) <= SMEM_PER_BLOCK
+
+    constraints = [
+        Constraint("unroll_divides_tt", lambda c: c["tt"] % c["unroll_t"] == 0,
+                   vec=lambda c: c["tt"] % c["unroll_t"] == 0),
+        Constraint("smem", lambda c: bool(smem_ok(c)), vec=smem_ok),
+    ]
+    return SearchSpace(params, constraints, name="hotspot_h100")
+
+
+def numpy_inputs(seed: int, h: int, w: int, n: int) -> dict:
+    """Temperature 60 + 20 U(0, 1) and power U(0, 1) on the domain padded by
+    ``n`` on every side, drawn with numpy in f32 as the JAX package's
+    ``make_inputs`` draws them with ``jax.random``; ``n`` sweeps, and the
+    central crop ``n`` deep is what is compared."""
+    rng = np.random.default_rng(seed)
+    hp, wp = h + 2 * n, w + 2 * n
+    temp = (60 + 20 * rng.random((hp, wp), np.float32)).astype(np.float32)
+    return {"temp": temp, "power": rng.random((hp, wp), np.float32),
+            "n_sweeps": n, "crop": n}
+
+
+def crop(out: torch.Tensor, c: int) -> torch.Tensor:
+    return out[c:out.shape[0] - c, c:out.shape[1] - c]
+
+
+class HotspotProblem(KernelProblem):
+    kernel_name = "hotspot_h100"
+    #: the reference's shape: a 2048 x 2048 domain, 600 sweeps (padded by
+    #: 600 on every side, so 3248 x 3248 is computed)
+    default_shape = {"h": 2048, "w": 2048, "n_total": 600}
+    small_shape = SMALL_SHAPE
+    _inputs: dict | None = None      # full-shape inputs, made at first use
+
+    def build_space(self) -> SearchSpace:
+        return build_space()
+
+    # -- correctness hooks ------------------------------------------------ #
+    def make_inputs(self, seed: int = 0, small: bool = True,
+                    device=None) -> dict:
+        """Inputs at the small correctness shape, or at :attr:`shape`, on
+        ``device`` (default: the problem's)."""
+        dims = SMALL_SHAPE if small else self.shape
+        return inputs_from_numpy(
+            numpy_inputs(seed, *(dims[k] for k in ("h", "w", "n_total"))),
+            self.device if device is None else device, dtype=torch.float32)
+
+    def run_reference(self, config: Config, inputs: dict):
+        return crop(ref.hotspot_reference(inputs["temp"], inputs["power"],
+                                          inputs["n_sweeps"]),
+                    inputs["crop"])
+
+    def run_kernel(self, config: Config, inputs: dict):
+        return crop(ops.hotspot(inputs["temp"], inputs["power"],
+                                inputs["n_sweeps"], config), inputs["crop"])
+
+    # -- measured evaluator ----------------------------------------------- #
+    def make_runner(self, config: Config):
+        """One ``ops.hotspot`` call at the problem's shape: all the sweeps."""
+        if self._inputs is None:
+            self._inputs = self.make_inputs(seed=0, small=False)
+        x = self._inputs
+        return lambda: ops.hotspot(x["temp"], x["power"], x["n_sweeps"],
+                                   config)

@@ -1,5 +1,7 @@
 """Public GEMM op: the Hopper kernel for CUDA tensors, the plain version for
-CPU tensors, and a count of kernel launches (``gemm.launches``)."""
+CPU tensors, a count of kernel launches (``gemm.launches``, one a call) and
+one of the CUDA kernels the calls issue (``gemm.device_launches``, also one
+a call)."""
 
 from __future__ import annotations
 
@@ -69,9 +71,11 @@ def gemm(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     kernel.launch(a, b, c, out, cfg, float(alpha),
                   float(beta) if sk == 1 else 0.0)
     gemm.launches += 1
+    gemm.device_launches += 1
     if sk == 1:
         return out
     return kernel.combine_split(out, c, float(beta))
 
 
 gemm.launches = 0
+gemm.device_launches = 0

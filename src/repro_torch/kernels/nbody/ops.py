@@ -1,5 +1,7 @@
 """Public N-body op: the Hopper kernel for CUDA tensors, the plain version
-for CPU tensors, and a count of kernel launches (``nbody.launches``)."""
+for CPU tensors, a count of kernel launches (``nbody.launches``, one a call)
+and one of the CUDA kernels the calls issue (``nbody.device_launches``, also
+one a call)."""
 
 from __future__ import annotations
 
@@ -72,7 +74,9 @@ def nbody(pos: torch.Tensor, mass: torch.Tensor | None = None,
     out = torch.empty((3, n), dtype=torch.float32, device=pos.device)
     kernel.launch(pos, mass, out, cfg)
     nbody.launches += 1
+    nbody.device_launches += 1
     return out
 
 
 nbody.launches = 0
+nbody.device_launches = 0

@@ -1,6 +1,7 @@
 """Public point-in-polygon op: the Hopper kernel for CUDA tensors, the plain
-version for CPU tensors, and a count of kernel launches
-(``pnpoly.launches``)."""
+version for CPU tensors, a count of kernel launches (``pnpoly.launches``, one
+a call) and one of the CUDA kernels the calls issue
+(``pnpoly.device_launches``, also one a call)."""
 
 from __future__ import annotations
 
@@ -68,7 +69,9 @@ def pnpoly(points: torch.Tensor, poly: torch.Tensor,
     out = torch.empty(n, dtype=torch.int32, device=points.device)
     kernel.launch(points, poly, out, cfg)
     pnpoly.launches += 1
+    pnpoly.device_launches += 1
     return out
 
 
 pnpoly.launches = 0
+pnpoly.device_launches = 0

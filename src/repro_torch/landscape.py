@@ -1,20 +1,30 @@
-"""The paper's landscape analyses on a table the card measured whole.
+"""The paper's landscape analyses on a table the card measured.
 
-    PYTHONPATH=src python -m repro_torch.landscape [--problem NAME] [--small]
+    PYTHONPATH=src python -m repro_torch.landscape [--problem NAME]
+        [--samples N] [--small]
 
-``NAME`` is one of the problems measured whole: ``pnpoly_h100``,
-``nbody_h100``, ``conv2d_h100`` or ``flash_attention_h100`` (the default).
+``NAME`` is a problem the port measures whole (``pnpoly_h100``,
+``nbody_h100``, ``conv2d_h100`` or ``flash_attention_h100``, the default)
+or one of the paper's sampled spaces (``hotspot_h100``, ``dedisp_h100``,
+``expdist_h100``).
 
-1. time every config of the problem's space on the card: a grid search over
-   the whole space in shuffled order (so drift of the card's clock is not
-   tied to any parameter), each config measured as the tuners measure it;
-2. publish the trials as an exhaustive :class:`ResultTable`;
+1. time configs of the problem's space on the card, each measured as the
+   tuners measure it.  A problem measured whole: a grid search over the
+   whole space in shuffled order (so drift of the card's clock is not tied
+   to any parameter).  A sampled problem (the paper's protocol, its
+   section V-A): ``N`` distinct random configs (default 10 000), which
+   come in random order; a space that admits no more than ``N`` is
+   measured whole.  A problem measured whole takes no ``--samples``;
+2. publish the trials as a :class:`ResultTable`, ``exhaustive`` or
+   ``sampled:N:0``;
 3. print five results of the paper on that table: the speedup of the best
    config over the median one (Fig 4); the evaluations random search needs
    to reach 90 % and 99 % of the optimum (Fig 2); the proportion of
-   centrality at p = 0.1 (Fig 3); the permutation feature importance of
-   every parameter (Fig 6); and the Table VIII row (cardinality,
-   constrained, valid, reduced, reduce-constrained).
+   centrality at p = 0.1 (Fig 3, on the subgraph the table induces when it
+   is sampled); the permutation feature importance of every parameter
+   (Fig 6); and the Table VIII row (cardinality, constrained, valid,
+   reduced, reduce-constrained), whose valid count a sampled table
+   estimates as the constrained count times its share of valid trials.
 
 Runs on the card; ``--device cpu`` (with ``--small``) times the plain
 PyTorch version on the host instead, which is what the tests do.  Port of
@@ -38,7 +48,7 @@ from .core.analysis import (centrality_curve, evals_to_reach,
 from .core.problem import FunctionProblem
 from .core.results import ResultsDB, ResultTable
 from .core.tuners import GridSearch, run_tuner
-from .kernels import BENCHMARKS, EXHAUSTIVE
+from .kernels import BENCHMARKS, EXHAUSTIVE, SAMPLE_N, SAMPLED
 
 #: the paper's random-search protocol for Fig 2 (benchmarks/fig2_convergence)
 CONVERGENCE_BUDGET, CONVERGENCE_REPEATS = 1000, 100
@@ -49,10 +59,29 @@ CENTRALITY_P = 0.1
 PFI_THRESHOLD = 0.05
 
 
+def table8(prob, table: ResultTable, trials) -> dict:
+    """Table VIII's cardinality, constrained and valid counts.  On an
+    exhaustive table the valid count looks the trials up, so nothing is
+    timed again; on a sampled one it is the constrained count times the
+    sample's share of valid trials, marked ``exact: False``, as
+    :func:`space_stats` estimates it."""
+    sp = prob.space
+    if table.protocol != "exhaustive":
+        share = sum(t.ok for t in trials) / max(1, len(trials))
+        constrained = sp.compiled().n_valid
+        return {"problem": prob.name, "cardinality": sp.cardinality,
+                "constrained": constrained,
+                "valid": {table.arch: int(constrained * share)},
+                "exact": False}
+    measured = {sp.flat_index(t.config): t.objective if t.ok else math.inf
+                for t in trials}
+    lookup = FunctionProblem(sp, lambda c, a: measured[sp.flat_index(c)],
+                             name=prob.name)
+    return space_stats(lookup, archs=(table.arch,))
+
+
 def analyse(prob, table: ResultTable, trials) -> dict:
-    """The five results on ``table``, the exhaustive table of ``trials``.
-    Table VIII's valid count looks the trials up, so nothing is timed
-    again."""
+    """The five results on ``table``, the table of ``trials``."""
     sp = prob.space
     curve = median_curve(table, budget=CONVERGENCE_BUDGET,
                          repeats=CONVERGENCE_REPEATS, seed=0)
@@ -61,11 +90,7 @@ def analyse(prob, table: ResultTable, trials) -> dict:
     imp = feature_importance(table, seed=0)
     importances = {table.arch: imp}
 
-    measured = {sp.flat_index(t.config): t.objective if t.ok else math.inf
-                for t in trials}
-    lookup = FunctionProblem(sp, lambda c, a: measured[sp.flat_index(c)],
-                             name=prob.name)
-    row = space_stats(lookup, archs=(table.arch,))
+    row = table8(prob, table, trials)
     best = sp.decode(table.best()[0])
     row.update(reduced_stats(
         sp, reduced_space(sp, importances, best, threshold=PFI_THRESHOLD)))
@@ -79,13 +104,23 @@ def analyse(prob, table: ResultTable, trials) -> dict:
 
 
 def main(problem: str = "flash_attention_h100", device=None,
-         small: bool = False, results_dir=None) -> dict:
-    """Measure ``problem``'s whole space and print the five results;
-    returns them with the table and the trials.  ``device`` defaults to
-    ``"cuda"``; ``small`` measures the problem's small test shape."""
-    if problem not in EXHAUSTIVE:
-        raise ValueError(f"{problem!r} is not measured whole; the port "
-                         f"measures {EXHAUSTIVE}")
+         small: bool = False, results_dir=None,
+         samples: int | None = None) -> dict:
+    """Measure ``problem``'s space and print the five results; returns them
+    with the table and the trials.  ``device`` defaults to ``"cuda"``;
+    ``small`` measures the problem's small test shape; ``samples`` (default
+    ``SAMPLE_N``) is the most configs a sampled problem measures: a space
+    that admits more is sampled.  A problem in ``EXHAUSTIVE`` is always
+    measured whole."""
+    if problem not in EXHAUSTIVE + SAMPLED:
+        raise ValueError(f"{problem!r} is neither measured whole nor "
+                         f"sampled; the port measures {EXHAUSTIVE} whole and "
+                         f"samples {SAMPLED}")
+    if problem in EXHAUSTIVE and samples is not None:
+        raise ValueError(f"{problem!r} is measured whole; samples applies "
+                         f"to {SAMPLED} only")
+    if samples is None and problem in SAMPLED:
+        samples = SAMPLE_N
     cls = BENCHMARKS[problem]
     prob = cls(shape=cls.small_shape if small else None, device=device)
     n = prob.space.compiled().n_valid
@@ -93,13 +128,18 @@ def main(problem: str = "flash_attention_h100", device=None,
           f"{prob.arch})  |space| = {prob.space.cardinality:,}, {n} admitted")
 
     t0 = time.perf_counter()
-    res = run_tuner(GridSearch(prob.space, seed=0), prob, budget=n,
-                    arch=prob.arch)
+    if samples is not None and n > samples:
+        # already in random order: the card's drift is tied to no parameter
+        trials = prob.sampled(samples, seed=0, arch=prob.arch)
+        protocol = f"sampled:{samples}:0"
+    else:
+        trials = run_tuner(GridSearch(prob.space, seed=0), prob, budget=n,
+                           arch=prob.arch).trials
+        protocol = "exhaustive"
     seconds = time.perf_counter() - t0
-    trials = res.trials
     invalid = sum(not t.ok for t in trials)
-    table = ResultTable.from_trials(prob, prob.arch, trials, "exhaustive")
-    print(f"measured {len(trials)} configs in {seconds:.2f} s; "
+    table = ResultTable.from_trials(prob, prob.arch, trials, protocol)
+    print(f"measured {len(trials)} configs ({protocol}) in {seconds:.2f} s; "
           f"{invalid} invalid")
     if results_dir is not None:
         ResultsDB(results_dir).put(table)
@@ -121,7 +161,8 @@ def main(problem: str = "flash_attention_h100", device=None,
           + ", ".join(f"{k} {v:.4f}" for k, v in out["pfi"].items()))
     row = out["table8"]
     print(f"Table VIII  cardinality {row['cardinality']}, constrained "
-          f"{row['constrained']}, valid {row['valid'][prob.arch]}, reduced "
+          f"{row['constrained']}, valid {row['valid'][prob.arch]}"
+          f"{'' if row['exact'] else ' (estimated from the sample)'}, reduced "
           f"{row['reduced']}, reduce-constrained "
           f"{row['reduce_constrained']} (kept: "
           f"{', '.join(row['kept_params'])})")
@@ -134,14 +175,18 @@ def main(problem: str = "flash_attention_h100", device=None,
 def _cli(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--problem", default="flash_attention_h100",
-                    choices=EXHAUSTIVE)
+                    choices=EXHAUSTIVE + SAMPLED)
+    ap.add_argument("--samples", type=int, default=None,
+                    help=f"most configs a sampled problem measures "
+                         f"(default {SAMPLE_N}); not for a problem measured "
+                         f"whole")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--small", action="store_true",
                     help="measure the problem's small test shape")
     ap.add_argument("--results-dir", default=None)
     a = ap.parse_args(argv)
     main(problem=a.problem, device=a.device, small=a.small,
-         results_dir=a.results_dir)
+         results_dir=a.results_dir, samples=a.samples)
 
 
 if __name__ == "__main__":

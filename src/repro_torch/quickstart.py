@@ -6,8 +6,11 @@
 1. pick a tunable problem: ``gemm_h100`` (4096^3 bf16, the default),
    ``nbody_h100`` (131 072 bodies, f32), ``pnpoly_h100`` (2 000 000 points
    against a 600-gon, f32), ``conv2d_h100`` (a 4096 x 4096 f32 image, a 15
-   x 15 filter) or ``flash_attention_h100`` (32 q heads, 8 kv heads, 4096
-   x 4096, d 128, causal, bf16),
+   x 15 filter), ``hotspot_h100`` (600 sweeps of a 2048 x 2048 domain
+   padded to 3248 x 3248, f32), ``dedisp_h100`` (1536 channels of 12 288
+   samples, 2048 DMs, 4096 samples out, f32), ``expdist_h100`` (65 536 x
+   65 536 points, f32) or ``flash_attention_h100`` (32 q heads, 8 kv
+   heads, 4096 x 4096, d 128, causal, bf16),
 2. run random search and a genetic algorithm against its measured
    objective: every config is timed on the card with CUDA events,
 3. check the winning config's output against the torch oracle at the
@@ -35,7 +38,8 @@ from .kernels import BENCHMARKS
 #: configs with any value ``"bf16"``).  pnpoly's integer output is exact.
 TOLS = {"gemm_h100": (5e-3, 2e-2), "flash_attention_h100": (5e-3, 2e-2),
         "conv2d_h100": (5e-3, 3e-2), "nbody_h100": (1e-3, 8e-2),
-        "pnpoly_h100": (0.0, 0.0)}
+        "pnpoly_h100": (0.0, 0.0), "hotspot_h100": (5e-3, 3e-2),
+        "expdist_h100": (1e-3, 2e-2), "dedisp_h100": (1e-3, 2e-2)}
 
 
 def tolerance(problem: str, config: dict) -> float:

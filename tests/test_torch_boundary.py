@@ -20,6 +20,9 @@ from repro_torch import landscape, quickstart  # noqa: E402
 from repro_torch.core.problem import MeasuredProblem  # noqa: E402
 from repro_torch.kernels.attention.space import AttentionProblem  # noqa: E402
 from repro_torch.kernels.conv2d.space import Conv2dProblem  # noqa: E402
+from repro_torch.kernels.dedisp.space import DedispProblem  # noqa: E402
+from repro_torch.kernels.expdist.space import ExpdistProblem  # noqa: E402
+from repro_torch.kernels.hotspot.space import HotspotProblem  # noqa: E402
 from repro_torch.kernels.nbody.space import NbodyProblem  # noqa: E402
 from repro_torch.kernels.pnpoly.space import PnpolyProblem  # noqa: E402
 from repro_torch.kernels.matmul.space import (GemmProblem,  # noqa: E402
@@ -53,6 +56,9 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.kernels.nbody.space",
             "repro_torch.kernels.pnpoly.space",
             "repro_torch.kernels.conv2d.space",
+            "repro_torch.kernels.hotspot.space",
+            "repro_torch.kernels.expdist.space",
+            "repro_torch.kernels.dedisp.space",
             "repro_torch.landscape"} <= set(got["modules"])
     assert got["bad"] == [], f"repro_torch loaded {got['bad']}"
 
@@ -82,6 +88,13 @@ ENTRY_POINTS = {
         problem="pnpoly_h100", small=True, budget=1, sample=1),
     "landscape.main(conv2d_h100)": lambda: landscape.main(
         problem="conv2d_h100", small=True),
+    "HotspotProblem": lambda: HotspotProblem(),
+    "ExpdistProblem": lambda: ExpdistProblem(),
+    "DedispProblem": lambda: DedispProblem(),
+    "quickstart.main(dedisp_h100)": lambda: quickstart.main(
+        problem="dedisp_h100", small=True, budget=1, sample=1),
+    "landscape.main(hotspot_h100)": lambda: landscape.main(
+        problem="hotspot_h100", small=True, samples=4),
 }
 
 
@@ -149,7 +162,8 @@ def _products(tree: ast.AST) -> list[int]:
 #: oracle (ref.py) that may hold torch products
 PLAIN = {"matmul": "gemm_plain", "attention": "flash_attention_plain",
          "nbody": "nbody_plain", "pnpoly": "pnpoly_plain",
-         "conv2d": "conv2d_plain"}
+         "conv2d": "conv2d_plain", "hotspot": "hotspot_plain",
+         "expdist": "expdist_plain", "dedisp": "dedisp_plain"}
 
 
 @pytest.mark.parametrize("module", ["kernel.py", "ops.py", "space.py"])
@@ -192,6 +206,18 @@ def test_inputs_from_numpy_takes_a_dtype():
     assert torch.equal(y["a"], x["a"].to(torch.bfloat16))
 
 
+def test_inputs_from_numpy_keeps_integer_arrays_integral():
+    """A table of delays stays int32 whatever ``dtype`` the floating
+    arrays take; a float cast would break it."""
+    delays = np.array([[0, 3], [8192, 7]], np.int64)
+    x = inputs_from_numpy({"delays": delays, "x": np.ones(3, np.float32)},
+                          device="cpu", dtype=torch.float32)
+    assert x["delays"].dtype == torch.int32 and x["x"].dtype == torch.float32
+    assert np.array_equal(x["delays"].numpy(), delays)
+    y = inputs_from_numpy({"delays": delays.astype(np.int32)}, device="cpu")
+    assert y["delays"].dtype == torch.int32
+
+
 def _chip_smoke():
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   ROOT / "chip_smoke.py")
@@ -202,14 +228,15 @@ def _chip_smoke():
 
 def test_chip_smoke_checks_every_cuda_source():
     """``chip_smoke.py`` looks each kernel up in one table: a row for every
-    CUDA source of the port, each op with its launch counter, so a kernel
-    cannot be built without being held against its plain version and
-    counted on its path."""
+    CUDA source of the port, each op with its launch counter and its count
+    of the CUDA kernels it issued, so a kernel cannot be built without
+    being held against its plain version and counted on its path."""
     table = _chip_smoke().kernel_table()
     assert {m.SOURCE for m, _ in table.values()} \
         == {p.name for p in (PORT / "csrc").glob("*.cu")}
     for module, op in table.values():
         assert isinstance(op.launches, int) and module.VARIANTS
+        assert isinstance(op.device_launches, int)
         assert 0.0 <= module.PLAIN_TOL <= 1e-3
 
 

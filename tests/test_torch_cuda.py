@@ -1,6 +1,6 @@
 """The port on a Hopper card: the CUDA GEMM, flash attention, N-body, point
-in polygon and 2-D convolution against their plain versions, and the
-measured evaluator.  Marked ``cuda``; each test
+in polygon, 2-D convolution, Hotspot, ExpDist and dedispersion against
+their plain versions, and the measured evaluator.  Marked ``cuda``; each test
 skips on a host without an sm_90 device.  This file imports no JAX, so it
 also runs where only the port is installed:
 
@@ -19,6 +19,15 @@ from repro_torch.kernels.attention.space import (  # noqa: E402
 from repro_torch.kernels.conv2d import kernel as ckernel  # noqa: E402
 from repro_torch.kernels.conv2d import ops as cops  # noqa: E402
 from repro_torch.kernels.conv2d.space import Conv2dProblem  # noqa: E402
+from repro_torch.kernels.dedisp import kernel as dkernel  # noqa: E402
+from repro_torch.kernels.dedisp import ops as dops  # noqa: E402
+from repro_torch.kernels.dedisp.space import DedispProblem  # noqa: E402
+from repro_torch.kernels.expdist import kernel as ekernel  # noqa: E402
+from repro_torch.kernels.expdist import ops as eops  # noqa: E402
+from repro_torch.kernels.expdist.space import ExpdistProblem  # noqa: E402
+from repro_torch.kernels.hotspot import kernel as hkernel  # noqa: E402
+from repro_torch.kernels.hotspot import ops as hops  # noqa: E402
+from repro_torch.kernels.hotspot.space import HotspotProblem  # noqa: E402
 from repro_torch.kernels.matmul import kernel, ops  # noqa: E402
 from repro_torch.kernels.nbody import kernel as nkernel  # noqa: E402
 from repro_torch.kernels.nbody import ops as nops  # noqa: E402
@@ -170,3 +179,65 @@ def test_conv2d_kernel_matches_plain_version(hopper, shape):
             f32 = ckernel.conv2d_plain(x["image"], x["filt"],
                                        **dict(cfg, acc_dtype="f32"))
             assert rel_l2(got, f32) > err, cfg
+
+
+def test_hotspot_kernel_matches_plain_version(hopper):
+    """On the whole domain: exactly with a bf16 accumulator, within
+    ``PLAIN_TOL`` with f32; 12 sweeps, so that tt up to 10 ends in a
+    shorter launch."""
+    prob = HotspotProblem(shape={"h": 200, "w": 300, "n_total": 12},
+                          device="cuda")
+    x = prob.make_inputs(seed=0, small=False)
+    temp, power, n = x["temp"], x["power"], x["n_sweeps"]
+    for cfg in prob.space.sample_distinct(12, 2):
+        before = hops.hotspot.launches
+        issued = hops.hotspot.device_launches
+        got = hops.hotspot(temp, power, n, cfg)
+        want = hkernel.hotspot_plain(temp, power, n, **cfg)
+        torch.cuda.synchronize()
+        assert hops.hotspot.launches == before + 1
+        assert hops.hotspot.device_launches == issued + -(-n // cfg["tt"])
+        if cfg["acc_dtype"] == "bf16":
+            assert int((got != want).sum()) == 0, cfg
+        else:
+            assert rel_l2(got, want) <= hkernel.PLAIN_TOL, cfg
+        assert rel_l2(prob.run_kernel(cfg, x), prob.run_reference(cfg, x)) \
+            <= tolerance(prob.name, cfg)
+
+
+def test_expdist_kernel_matches_plain_version(hopper):
+    prob = ExpdistProblem(shape={"ka": 5000, "kb": 3000}, device="cuda")
+    x = prob.make_inputs(seed=0, small=False)
+    args = (x["a"], x["b"], x["sa"], x["sb"])
+    for cfg in prob.space.sample_distinct(12, 2):
+        before = eops.expdist.launches
+        issued = eops.expdist.device_launches
+        got = eops.expdist(*args, cfg)
+        want = ekernel.expdist_plain(*args, **cfg)
+        torch.cuda.synchronize()
+        assert eops.expdist.launches == before + 1
+        assert eops.expdist.device_launches == issued + 2
+        err = rel_l2(got, want)
+        assert err <= ekernel.PLAIN_TOL, (err, cfg)
+        assert rel_l2(got, prob.run_reference(cfg, x)) \
+            <= tolerance(prob.name, cfg)
+        if cfg["compute_dtype"] == "bf16":
+            f32 = ekernel.expdist_plain(*args,
+                                        **dict(cfg, compute_dtype="f32"))
+            assert rel_l2(got, f32) > err, cfg
+
+
+def test_dedisp_kernel_matches_plain_version(hopper):
+    """Exactly: 0 mismatching outputs, in both acc_dtypes."""
+    prob = DedispProblem(shape={"c": 96, "d": 160, "t_out": 1024,
+                                "t_in": 2048, "dm_step": 0.5}, device="cuda")
+    x = prob.make_inputs(seed=0, small=False)
+    for cfg in prob.space.sample_distinct(12, 2):
+        before = dops.dedisp.launches
+        got = dops.dedisp(x["x"], x["delays"], x["t_out"], cfg)
+        want = dkernel.dedisp_plain(x["x"], x["delays"], x["t_out"], **cfg)
+        torch.cuda.synchronize()
+        assert dops.dedisp.launches == before + 1
+        assert int((got != want).sum()) == 0, cfg
+        assert rel_l2(got, prob.run_reference(cfg, x)) \
+            <= tolerance(prob.name, cfg)

@@ -186,6 +186,56 @@ def test_landscape_refuses_a_problem_it_does_not_measure_whole():
         landscape.main(problem="gemm_h100", device="cpu")
 
 
+def test_landscape_takes_no_sample_of_a_problem_it_measures_whole():
+    """``samples`` belongs to the sampled protocol: a problem in
+    ``EXHAUSTIVE`` is always measured whole, so asking for a sample of it
+    is an error, raised before anything is measured."""
+    with pytest.raises(ValueError, match="samples applies to"):
+        landscape.main(problem="pnpoly_h100", device="cpu", small=True,
+                       samples=4)
+
+
+def test_landscape_samples_a_sampled_problem_on_the_host(tmp_path, capsys):
+    """The paper's sampled protocol through ``landscape.main --small
+    --samples 40`` on ``expdist_h100`` (720 admitted configs): 40 distinct
+    configs in random order, a ``sampled:40:0`` table that the JAX
+    package's ``ResultsDB`` reads, the five results on it, and a Table VIII
+    row whose valid count is estimated (``exact`` False)."""
+    out = landscape.main(problem="expdist_h100", device="cpu", small=True,
+                         samples=40, results_dir=tmp_path)
+    prob, table = out["problem"], out["table"]
+    assert prob.space.compiled().n_valid == 720
+    assert table.protocol == "sampled:40:0" and len(table) == 40
+    assert out["invalid"] == 0
+    rows = [prob.space.flat_index(t.config) for t in out["trials"]]
+    assert len(set(rows)) == 40
+    assert rows == [prob.space.flat_index(c)
+                    for c in prob.space.sample_distinct(40, 0)]
+    assert out["speedup"] >= 1.0
+    assert 1 <= out["n90"] <= out["n99"] <= 40
+    assert 0.0 <= out["centrality"] <= 1.0
+    assert list(out["pfi"]) == list(prob.space.param_names)
+    row = out["table8"]
+    assert row["exact"] is False
+    assert row["constrained"] == 720 and row["valid"]["cpu"] == 720
+    back = jresults.ResultsDB(tmp_path).get(prob.name, "cpu", "sampled:40:0")
+    assert back.objectives == table.objectives
+    assert "estimated from the sample" in capsys.readouterr().out
+
+
+def test_landscape_measures_a_small_sampled_space_whole():
+    """A sampled problem whose space admits no more than ``samples``
+    configs is measured whole, and its table is exhaustive: dedisp_h100 at
+    its small shape admits 112."""
+    out = landscape.main(problem="dedisp_h100", device="cpu", small=True)
+    prob, table = out["problem"], out["table"]
+    n = prob.space.compiled().n_valid
+    assert n == 112 and table.protocol == "exhaustive" and len(table) == n
+    assert out["invalid"] == 0
+    assert out["table8"]["exact"] is True
+    assert out["table8"]["valid"]["cpu"] == n
+
+
 def test_landscape_measures_nbody_whole_on_the_host():
     """A problem of this slice through ``landscape.main --small``: every
     admitted config of ``nbody_h100`` at N = 512 measured once, with no

@@ -1,7 +1,8 @@
 """The port's slices end to end on the host: the quickstart and a genetic
 algorithm over ``GemmProblem(device="cpu")`` at 256x256x512, the quickstart
-over ``flash_attention_h100``, ``nbody_h100``, ``pnpoly_h100`` and
-``conv2d_h100`` at their small shapes, timing the plain versions with the
+over ``flash_attention_h100``, ``nbody_h100``, ``pnpoly_h100``,
+``conv2d_h100``, ``hotspot_h100``, ``expdist_h100`` and ``dedisp_h100`` at
+their small shapes, timing the plain versions with the
 host clock, and published tables both packages' ``ResultsDB`` read."""
 
 import math
@@ -97,11 +98,13 @@ def test_quickstart_tunes_attention_on_the_host(tmp_path):
 
 
 @pytest.mark.parametrize("problem", ["nbody_h100", "pnpoly_h100",
-                                     "conv2d_h100"])
+                                     "conv2d_h100", "hotspot_h100",
+                                     "expdist_h100", "dedisp_h100"])
 def test_quickstart_tunes_the_f32_problems_on_the_host(problem, tmp_path):
-    """nbody, pnpoly and conv2d through the quickstart at their small
-    shapes: every trial valid, the winner within the oracle tolerance of
-    its config (exact for pnpoly), the table loads in the JAX package."""
+    """nbody, pnpoly, conv2d, hotspot, expdist and dedisp through the
+    quickstart at their small shapes: every trial valid, the winner within
+    the oracle tolerance of its config (exact for pnpoly), the table loads
+    in the JAX package."""
     out = quickstart.main(problem=problem, device="cpu", small=True,
                           budget=6, sample=6, results_dir=tmp_path)
     prob = out["problem"]
