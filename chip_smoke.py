@@ -9,18 +9,21 @@ Phases, each timed:
                and power limit.
 2. build     — builds every kernel of the port from ``src/repro_torch/csrc``
                with nvcc, all sources and variants at once, and checks that
-               no compiled tile spills and that every tile launches the
-               largest block its space admits.
+               no compiled tile spills, that every tile launches the
+               largest block its space admits, and that the GEMM
+               libraries' SASS issues wgmma and TMA loads and no mma.sync.
 3. parity    — each kernel against its plain PyTorch version on the card, on
                configs that together take every value of every parameter at
-               small shapes (GEMM 256x256x512; attention 4 q heads, 2 kv
+               small shapes (GEMM 256x256x512, every compiled tile at every
+               stage count; attention 4 q heads, 2 kv
                heads, 256 x 256, d 64, causal and full, and 128 x 256;
                N-body 512 and 4096 bodies; pnpoly 1536 points and a
                17-gon; conv2d 48 x 160 with a 5 x 5 filter and 300 x 600
                with 15 x 15; hotspot 48 x 144 with 4 sweeps and 224 x 324
                with 12; expdist 384 x 320 and 5000 x 3000 points; dedisp 12
                channels x 24 DMs and 96 x 160), and on three configs at the
-               full shapes; within the JAX package's tolerance and the
+               full shapes (GEMM: six, both layouts, split-k and a bf16
+               accumulator among them); within the JAX package's tolerance and the
                tighter ``kernel.PLAIN_TOL``, with a bf16-vs-f32 control for
                every kernel with a bf16 option.  pnpoly and dedisp (both
                acc_dtypes) and hotspot in bf16 are held exactly (0
@@ -52,7 +55,9 @@ Phases, each timed:
                computing the same function (``torch.addmm``;
                ``scaled_dot_product_attention``; ``F.conv2d``), a yardstick
                the port never calls; each the median of cold-L2 CUDA-event
-               repeats.  No single PyTorch call computes nbody, pnpoly,
+               repeats; GEMM's tuned config also at each ring depth, with
+               B's other layout and a bf16 accumulator, and a 128 x 128
+               tile on one and two consumer warpgroups.  No single PyTorch call computes nbody, pnpoly,
                hotspot (600 dependent sweeps), expdist or dedisp (each
                several ops), so their ``library_ms`` is null.
 
@@ -68,6 +73,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -133,6 +139,52 @@ def bound(flops: float, f32_inst: float, nbytes: float,
                 sfu_ops / PEAK_SFU)
     bytes_s = nbytes / PEAK_HBM
     return max(ops_s, bytes_s), "operations" if ops_s >= bytes_s else "bytes"
+
+
+def gemm_sass(built, failures: list[str]) -> dict:
+    """Count the GEMM libraries' tensor-core and TMA instructions in their
+    SASS (``cuobjdump``): each must issue wgmma (HGMMA) and TMA loads
+    (UTMALDG), and none the older mma.sync (HMMA).  Also print what ptxas
+    said about wgmma or setmaxnreg in each build log."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = {}
+    for variant, lib in built.libs.items():
+        sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                              text=True, timeout=300, check=True).stdout
+        ops_ = re.findall(r"\b(HGMMA|HMMA|UTMALDG)\b", sass)
+        n = {op: ops_.count(op) for op in ("HGMMA", "HMMA", "UTMALDG")}
+        log = (lib.parent / f"{variant}.log").read_text()
+        notes = sorted({line.strip() for line in log.splitlines()
+                        if "wgmma" in line or "setmaxnreg" in line})
+        print(f"  gemm {variant}: SASS HGMMA {n['HGMMA']}, HMMA {n['HMMA']}, "
+              f"UTMALDG {n['UTMALDG']}; ptxas on wgmma/setmaxnreg: "
+              f"{notes or 'nothing'}")
+        if not n["HGMMA"] or not n["UTMALDG"] or n["HMMA"]:
+            failures.append(f"gemm {variant}: expected wgmma and TMA and no "
+                            f"mma.sync in its SASS, counted {n}")
+        out[variant] = dict(n, ptxas=notes)
+    return out
+
+
+def gemm_parity_configs(space, kernel) -> list[dict]:
+    """Every compiled (rhs_layout, block_k, tile, warps) at each of the
+    three ``stages``, the other parameters cycled so that each of their
+    values appears: the small-shape parity set."""
+    cfgs = []
+    for i, (lay, bk, (bm, bn, w), st) in enumerate(
+            (lay, bk, tile, st) for lay in ("kn", "nk")
+            for bk in kernel.BLOCK_K for tile in kernel.TILES
+            for st in kernel.STAGES):
+        cfg = {"block_m": bm, "block_n": bn, "block_k": bk,
+               "unroll_k": 1 + (i // 4) % 2, "warps": w, "stages": st,
+               "grid_order": ("mn", "nm")[i % 2],
+               "split_k": (1, 2, 4, 8)[(i // 2) % 4],
+               "acc_dtype": ("f32", "bf16")[(i // 3) % 2], "rhs_layout": lay}
+        if not space.satisfies(cfg):
+            cfg["unroll_k"] = 1
+        cfgs.append(cfg)
+    return cfgs
 
 
 def kernel_table() -> dict:
@@ -272,7 +324,8 @@ def main(argv=None) -> int:
         tiles = {
             "gemm": {t: kernel.tile_attributes(*t) for t in sorted(
                 {(c["rhs_layout"], c["block_m"], c["block_n"], c["block_k"],
-                  c["warps"]) for c in full.space.valid_configs()})},
+                  c["warps"], c["stages"])
+                 for c in full.space.valid_configs()})},
             # every compiled attention tile: d 128 runs the full shape, d 64
             # the small one
             "flash_attention": {(d, bkv, w): fkernel.tile_attributes(d, bkv, w)
@@ -326,6 +379,12 @@ def main(argv=None) -> int:
         for (d, bkv, w), a in tiles["flash_attention"].items():
             print(f"  attention d={d} block_kv={bkv} warps={w}: "
                   f"{a['regs']} registers, {a['smem_bytes']} B shared")
+        for t, a in tiles["gemm"].items():
+            if t[-1] == max(kernel.STAGES):
+                print(f"  gemm {t[0]} {t[1]}x{t[2]}x{t[3]} warps={t[4]}: "
+                      f"{a['regs']} registers at entry, {a['smem_bytes']} B "
+                      f"shared with {t[5]} stages")
+        record["gemm_sass"] = gemm_sass(built[kernel.SOURCE], failures)
         record["build_s"] = build_s
 
     worst = {k: {"rel_l2": 0.0, "max_abs_err": 0.0, "controls": 0,
@@ -515,14 +574,18 @@ def main(argv=None) -> int:
     with phase("parity"):
         x = small.make_inputs(seed=3, small=True)
         x_nk = x["b"].t().contiguous()
-        cfgs = covering_configs(small.space, 16, seed=5)
+        cfgs = gemm_parity_configs(small.space, kernel)
         print(f"gemm: {len(cfgs)} configs at {SMALL_SHAPE}, alpha 0.75, "
-              f"beta 0.5")
+              f"beta 0.5: every compiled tile at every stage count")
         for cfg in cfgs:
             gemm_parity(cfg, x, x_nk)
         xf = full.make_inputs(seed=4, small=False)
         xf_nk = xf["b"].t().contiguous()
-        big = [dict(ops.DEFAULT_CONFIG)] + full.space.sample_distinct(2, 9)
+        dflt = dict(ops.DEFAULT_CONFIG)
+        big = [dflt, dict(dflt, rhs_layout="nk", stages=2),
+               dict(dflt, split_k=4, stages=3),
+               dict(dflt, acc_dtype="bf16", unroll_k=2)] \
+            + full.space.sample_distinct(2, 9)
         print(f"gemm: {len(big)} configs at {full.shape}")
         for cfg in big:
             gemm_parity(cfg, xf, xf_nk)
@@ -888,10 +951,27 @@ def main(argv=None) -> int:
         print(f"gemm best config {best.config}")
         print(f"  median {t_best * 1e3:.4f} ms = {flops / t_best / 1e12:.1f} "
               f"TFLOP/s = {bound_s / t_best:.1%} of the {bound_s * 1e3:.4f} "
-              f"ms bound ({bound_by})")
+              f"ms bound ({bound_by}) = {t_best / lib_s:.3f}x library_ms")
         print(f"gemm default config {default.objective * 1e3:.4f} ms; plain "
               f"version {plain_s * 1e3:.3f} ms; library_ms (torch.addmm) "
               f"{lib_s * 1e3:.4f} ms")
+        # the tuned config at each ring depth, with B's other layout and a
+        # bf16 accumulator, and a 128 x 128 tile on one and on two
+        # consumer warpgroups
+        sweep = {}
+        other = {"kn": "nk", "nk": "kn"}[best.config["rhs_layout"]]
+        for change in ([{"stages": st} for st in kernel.STAGES]
+                       + [{"rhs_layout": other}, {"acc_dtype": "bf16"}]
+                       + [{"block_m": 128, "block_n": 128, "warps": w}
+                          for w in kernel.WARPS]):
+            cfg = dict(best.config, **change)
+            if cfg == best.config or not full.space.satisfies(cfg):
+                continue
+            t_s = full.evaluate(cfg).objective
+            label = " ".join(f"{k}={v}" for k, v in change.items())
+            sweep[label] = t_s * 1e3
+            print(f"  tuned with {label}: {t_s * 1e3:.4f} ms")
+        record["gemm_sweep_ms"] = sweep
         print(f"gemm speedup over median: {res['speedup']:.3f}x over "
               f"{len(res['table'])} sampled configs")
 

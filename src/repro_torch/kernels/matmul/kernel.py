@@ -1,8 +1,10 @@
 """The Hopper GEMM: its ctypes launcher and its plain PyTorch version.
 
-The kernel is ``csrc/gemm.cu`` (CUDA C++ for sm_90a, WMMA bf16 fragments on
-the tensor cores, cp.async double buffering); it replaces the Pallas TPU
-kernel ``repro/kernels/matmul/kernel.py::gemm``.  It is built with ``nvcc``
+The kernel is ``csrc/gemm.cu`` (CUDA C++ for sm_90a: a warp-specialised
+producer keeps TMA loads in flight into a ring of ``stages`` mbarrier-guarded
+shared-memory buffers, and one or two consumer warpgroups run ``wgmma`` on
+them, with the building blocks in ``csrc/hopper.cuh``); it replaces the
+Pallas TPU kernel ``repro/kernels/matmul/kernel.py::gemm``.  It is built with ``nvcc``
 at the first launch (:mod:`repro_torch._build`), one library per
 (``rhs_layout``, ``block_k``) pair, and bound with :mod:`ctypes`.
 
@@ -23,18 +25,27 @@ import torch
 
 from ... import _build
 
-#: the tile menu compiled into the libraries (``csrc/gemm.cu`` GEMM_TILES
-#: instantiates every (block_m, block_n, warps) within the accumulator
-#: budget; ``space.py`` admits exactly those)
 BLOCK_MN = (64, 128, 256)
 BLOCK_K = (32, 64)
+#: consumer warps: one or two warpgroups of four (the producer warpgroup
+#: comes on top)
 WARPS = (4, 8)
 UNROLL_K = (1, 2)
-#: f32 accumulators one thread may hold (``MAX_ACC`` in the source)
+#: depths of the TMA ring (``MAX_STAGES`` in the source bounds them)
+STAGES = (2, 3, 4)
+#: f32 accumulators one consumer thread may hold (``MAX_ACC`` in the source)
 MAX_ACC_PER_THREAD = 128
-#: shared-memory layout of the source: two stages, 8 bf16 of row padding,
-#: a 16x16 f32 epilogue tile per warp
-STAGES, PAD = 2, 8
+#: the (block_m, block_n, warps) tiles ``GEMM_TILES`` in ``csrc/gemm.cu``
+#: instantiates: whole 64-row wgmmas of N 64, 128 or 256 per consumer
+#: warpgroup (two split block_m >= 128 by rows, else block_n by columns)
+#: within the accumulator budget.  ``space.py`` admits exactly these.
+TILES = ((64, 64, 4), (64, 128, 4), (64, 128, 8), (64, 256, 4), (64, 256, 8),
+         (128, 64, 4), (128, 64, 8), (128, 128, 4), (128, 128, 8),
+         (128, 256, 8), (256, 64, 4), (256, 64, 8), (256, 128, 8))
+#: shared memory besides the ring: alignment slack for the 1024-byte
+#: swizzle atoms, and a full and an empty mbarrier (8 B) for each of up to
+#: four stages
+SMEM_ALIGN, SMEM_BARRIERS = 1024, 2 * 4 * 8
 
 #: rel-L2 within which the kernel must follow :func:`gemm_plain` on the
 #: card.  Both sum the same f32 products, in another order, so only an
@@ -51,22 +62,21 @@ VARIANTS = {f"{layout}_bk{bk}": {"GEMM_NK": int(layout == "nk"),
 _libs: dict[str, ctypes.CDLL] | None = None
 
 
-def smem_bytes(block_m, block_n, block_k, warps, nk):
-    """Dynamic shared memory of one block, as ``Tile::SMEM`` counts it.
-    Works elementwise on numpy columns too (``nk`` a bool column)."""
-    b_elems = (nk * (block_n * (block_k + PAD))
-               + (1 - nk) * (block_k * (block_n + PAD)))
-    return (STAGES * (block_m * (block_k + PAD) + b_elems) * 2
-            + warps * 256 * 4)
+def smem_bytes(block_m, block_n, block_k, stages):
+    """Dynamic shared memory of one block, as ``Tile::smem`` counts it: a
+    ring of ``stages`` A and B tiles in bf16, the alignment slack and the
+    barriers.  Works elementwise on numpy columns too."""
+    return (SMEM_ALIGN + stages * (block_m + block_n) * block_k * 2
+            + SMEM_BARRIERS)
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.gemm_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, i,
+    lib.gemm_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, i, i,
                                 f, f, p]
     lib.gemm_launch.restype = i
     ip = ctypes.POINTER(ctypes.c_int)
-    lib.gemm_attributes.argtypes = [i, i, i, ip, ip, ip]
+    lib.gemm_attributes.argtypes = [i, i, i, i, ip, ip, ip]
     lib.gemm_attributes.restype = i
     lib.gemm_error_string.argtypes = [i]
     lib.gemm_error_string.restype = ctypes.c_char_p
@@ -87,16 +97,19 @@ def _lib(rhs_layout: str, block_k: int) -> ctypes.CDLL:
 
 
 def tile_attributes(rhs_layout: str, block_m: int, block_n: int,
-                    block_k: int, warps: int) -> dict:
-    """Registers per thread, local (spill) bytes and dynamic shared memory
-    of one compiled tile, from ``cudaFuncGetAttributes``."""
+                    block_k: int, warps: int, stages: int) -> dict:
+    """Registers per thread at entry, local (spill) bytes from
+    ``cudaFuncGetAttributes``, and the dynamic shared memory of one compiled
+    tile with ``stages`` buffers."""
     lib = _lib(rhs_layout, block_k)
     regs, local, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    err = lib.gemm_attributes(block_m, block_n, warps, ctypes.byref(regs),
-                              ctypes.byref(local), ctypes.byref(smem))
+    err = lib.gemm_attributes(block_m, block_n, warps, stages,
+                              ctypes.byref(regs), ctypes.byref(local),
+                              ctypes.byref(smem))
     if err:
         raise RuntimeError(f"no compiled GEMM tile {block_m}x{block_n}x"
-                           f"{block_k} warps={warps} {rhs_layout}: "
+                           f"{block_k} warps={warps} stages={stages} "
+                           f"{rhs_layout}: "
                            f"{lib.gemm_error_string(err).decode()}")
     return {"regs": regs.value, "local_bytes": local.value,
             "smem_bytes": smem.value}
@@ -106,7 +119,9 @@ def launch(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
            out: torch.Tensor, cfg: dict, alpha: float, beta: float) -> None:
     """Launch the kernel on the current stream: ``out`` is (M, N), or
     (split_k, M, N) for split-k (then ``beta`` must be 0).  The caller
-    checks devices, dtypes, shapes and contiguity."""
+    checks devices, dtypes, shapes and contiguity; the launcher refuses
+    (and this raises on) what TMA cannot read: a base or row not 16-byte
+    aligned."""
     lib = _lib(cfg["rhs_layout"], cfg["block_k"])
     m, k = a.shape
     n = c.shape[1]
@@ -114,7 +129,8 @@ def launch(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
         err = lib.gemm_launch(
             a.data_ptr(), b.data_ptr(), c.data_ptr(), out.data_ptr(),
             m, n, k, cfg["split_k"], cfg["block_m"], cfg["block_n"],
-            cfg["warps"], int(cfg["acc_dtype"] == "bf16"), cfg["unroll_k"],
+            cfg["warps"], cfg["stages"], int(cfg["acc_dtype"] == "bf16"),
+            cfg["unroll_k"],
             int(cfg["grid_order"] == "nm"), alpha, beta,
             torch.cuda.current_stream(a.device).cuda_stream)
     if err:
@@ -142,7 +158,7 @@ def gemm_plain(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, *,
                **_tiling) -> torch.Tensor:
     """The kernel's function in PyTorch ops.  ``b`` is (K, N) for
     ``rhs_layout="kn"`` and (N, K) for ``"nk"``; ``_tiling`` (block_m,
-    block_n, warps, grid_order) does not change the result."""
+    block_n, warps, stages, grid_order) does not change the result."""
     b_kn = b if rhs_layout == "kn" else b.t()
     m, k = a.shape
     ks = k // split_k

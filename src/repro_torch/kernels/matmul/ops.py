@@ -11,12 +11,13 @@ from ...device import HOPPER
 from . import kernel
 
 #: the fastest config with B stored (K, N) that GA + random search found in
-#: the ``gemm_h100`` space at 4096^3 on an H100 (``chip_smoke.py``, see
-#: PERF.md).  With B stored (N, K) the same tile runs faster ("nk").
+#: the ``gemm_h100`` space at 4096^3 on an H100 (``chip_smoke.py``, PERF.md
+#: section 6): two consumer warpgroups splitting a 256-row tile, the
+#: deepest ring that fits.  With B stored (N, K) the same tile is as fast.
 DEFAULT_CONFIG = {
-    "block_m": 128, "block_n": 128, "block_k": 64, "unroll_k": 1,
-    "warps": 4, "grid_order": "mn", "split_k": 1, "acc_dtype": "f32",
-    "rhs_layout": "kn",
+    "block_m": 256, "block_n": 128, "block_k": 64, "unroll_k": 1,
+    "warps": 8, "stages": 4, "grid_order": "mn", "split_k": 1,
+    "acc_dtype": "f32", "rhs_layout": "kn",
 }
 
 

@@ -1,9 +1,10 @@
 """The ``gemm_h100`` problem: a Hopper search space and a measured evaluator.
 
 The space speaks the kernel's vocabulary (``csrc/gemm.cu``): output tile
-``block_m`` x ``block_n``, k-block depth ``block_k``, ``unroll_k`` sub-dots
-per k block, ``warps`` per block, the block raster ``grid_order``,
-``split_k``, the accumulator's stored dtype and B's layout.  Its
+``block_m`` x ``block_n``, k-block depth ``block_k``, ``unroll_k`` wgmma
+commit groups per k block, ``warps`` consumer warps per block, ``stages``
+buffers in the TMA ring, the block raster ``grid_order``, ``split_k``, the
+accumulator's stored dtype and B's layout.  Its
 constraints admit exactly the configs the compiled libraries can launch:
 every admitted config launches, so a failed launch is a fault in the space
 or the kernel, never a silently invalid trial.
@@ -30,6 +31,7 @@ def build_space(m: int, n: int, k: int) -> SearchSpace:
         Param("block_k", kernel.BLOCK_K),
         Param("unroll_k", kernel.UNROLL_K),
         Param("warps", kernel.WARPS),
+        Param("stages", kernel.STAGES),
         Param("grid_order", ("mn", "nm")),
         Param("split_k", (1, 2, 4, 8)),
         Param("acc_dtype", ("f32", "bf16")),
@@ -37,16 +39,9 @@ def build_space(m: int, n: int, k: int) -> SearchSpace:
     ]
     acc_cap = kernel.MAX_ACC_PER_THREAD
 
-    def smem_ok(c: Config) -> bool:
+    def smem_ok(c) -> bool | np.ndarray:
         return kernel.smem_bytes(c["block_m"], c["block_n"], c["block_k"],
-                                 c["warps"], int(c["rhs_layout"] == "nk")) \
-            <= SMEM_PER_BLOCK
-
-    def smem_ok_vec(c: dict) -> np.ndarray:
-        return kernel.smem_bytes(c["block_m"], c["block_n"], c["block_k"],
-                                 c["warps"],
-                                 (c["rhs_layout"] == "nk").astype(np.int64)) \
-            <= SMEM_PER_BLOCK
+                                 c["stages"]) <= SMEM_PER_BLOCK
 
     constraints = [
         # the reference's fits_shape, tightened to what the kernel needs:
@@ -62,23 +57,25 @@ def build_space(m: int, n: int, k: int) -> SearchSpace:
                    & (m % c["block_m"] == 0) & (n % c["block_n"] == 0)
                    & (k % c["split_k"] == 0)
                    & ((k // c["split_k"]) % c["block_k"] == 0)),
-        # a sub-dot is at least one 16-deep WMMA fragment
+        # a commit group is at least one 16-deep wgmma
         Constraint("unroll_divides", lambda c: c["block_k"] % c["unroll_k"] == 0
                    and c["block_k"] // c["unroll_k"] >= 16,
                    vec=lambda c: (c["block_k"] % c["unroll_k"] == 0)
                    & (c["block_k"] // c["unroll_k"] >= 16)),
-        Constraint("smem", smem_ok, vec=smem_ok_vec),
-        # f32 accumulators per thread within the register budget (128 keeps
-        # every compiled tile free of spills; chip_smoke.py checks that)
+        Constraint("smem", smem_ok, vec=smem_ok),
+        # f32 accumulators per consumer thread within the register budget
+        # (128 keeps every compiled tile free of spills; chip_smoke.py
+        # checks that)
         Constraint("registers", lambda c: c["block_m"] * c["block_n"]
                    <= acc_cap * 32 * c["warps"],
                    vec=lambda c: c["block_m"] * c["block_n"]
                    <= acc_cap * 32 * c["warps"]),
-        # 2 x warps/2 warps, each a whole number of 16x16 fragments
-        Constraint("warp_tiling", lambda c: c["block_m"] % 32 == 0
-                   and c["block_n"] % (8 * c["warps"]) == 0,
-                   vec=lambda c: (c["block_m"] % 32 == 0)
-                   & (c["block_n"] % (8 * c["warps"]) == 0)),
+        # each consumer warpgroup takes whole 64-row wgmmas of N 64..256:
+        # two split block_m >= 128 by rows, else block_n >= 128 by columns
+        Constraint("wgmma_tiling", lambda c: c["warps"] == 4
+                   or c["block_m"] >= 128 or c["block_n"] >= 128,
+                   vec=lambda c: (c["warps"] == 4) | (c["block_m"] >= 128)
+                   | (c["block_n"] >= 128)),
     ]
     return SearchSpace(params, constraints, name="gemm_h100")
 

@@ -48,12 +48,28 @@ def hopper():
         pytest.skip("needs a Hopper (sm_90) CUDA device")
 
 
+#: both layouts at stages 2 and 4, split-k and a bf16 accumulator, on
+#: one- and two-warpgroup tiles, beside each seed's sampled configs
+GEMM_COVER = [
+    {"block_m": bm, "block_n": bn, "block_k": bk, "unroll_k": u, "warps": w,
+     "stages": st, "grid_order": order, "split_k": sk, "acc_dtype": acc,
+     "rhs_layout": lay}
+    for (bm, bn, bk, u, w, st, order, sk, acc, lay) in [
+        (128, 256, 64, 1, 8, 4, "mn", 1, "f32", "kn"),
+        (128, 256, 64, 2, 8, 2, "nm", 2, "bf16", "nk"),
+        (64, 128, 32, 1, 4, 2, "mn", 4, "f32", "kn"),
+        (256, 64, 64, 2, 4, 4, "nm", 1, "bf16", "kn"),
+        (64, 256, 32, 2, 8, 4, "mn", 2, "f32", "nk"),
+        (256, 128, 64, 1, 8, 2, "mn", 4, "bf16", "nk")]]
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_kernel_matches_plain_version(hopper, seed):
     prob = GemmProblem(shape=SMALL_SHAPE, device="cuda")
     x = prob.make_inputs(seed=seed, small=True)
     b_nk = x["b"].t().contiguous()
-    for cfg in prob.space.sample_distinct(8, seed):
+    for cfg in prob.space.sample_distinct(8, seed) + GEMM_COVER:
+        assert prob.space.satisfies(cfg), cfg
         b = x["b"] if cfg["rhs_layout"] == "kn" else b_nk
         before = ops.gemm.launches
         got = ops.gemm(x["a"], b, x["c"], x["alpha"], x["beta"], cfg)
@@ -71,6 +87,33 @@ def test_kernel_matches_plain_version(hopper, seed):
             f32 = kernel.gemm_plain(x["a"], b, x["c"], alpha=x["alpha"],
                                     beta=x["beta"], **dict(cfg, acc_dtype="f32"))
             assert rel_l2(got, f32) > err, cfg
+
+
+@pytest.mark.parametrize("case", ["misaligned", "not_divisible"])
+def test_launcher_refuses_what_the_kernel_cannot_read(hopper, case):
+    """The launcher returns an error, which the wrapper raises, for an
+    operand TMA cannot read (a base not 16-byte aligned, which
+    ``ops.check`` lets through) or a shape the blocks do not divide (which
+    ``ops.check`` catches first, so ``kernel.launch`` is called directly):
+    nothing is launched."""
+    x = GemmProblem(shape=SMALL_SHAPE, device="cuda").make_inputs(
+        seed=0, small=True)
+    a, b, c = x["a"], x["b"], x["c"]
+    cfg = dict(ops.DEFAULT_CONFIG)
+    before = ops.gemm.launches
+    if case == "misaligned":
+        flat = torch.empty(a.numel() + 8, dtype=a.dtype, device=a.device)
+        a = flat[1:1 + a.numel()].view(a.shape).copy_(a)   # 2 bytes off
+        assert a.is_contiguous() and a.data_ptr() % 16 != 0
+        with pytest.raises(RuntimeError, match="GEMM kernel launch failed"):
+            ops.gemm(a, b, c, 1.0, 1.0, cfg)
+    else:
+        out = torch.empty_like(c)
+        with pytest.raises(RuntimeError, match="GEMM kernel launch failed"):
+            kernel.launch(a[:192], b, c[:192], out[:192],
+                          dict(cfg, block_m=128), 1.0, 1.0)
+    torch.cuda.synchronize()
+    assert ops.gemm.launches == before
 
 
 def test_measured_evaluator_times_the_kernel(hopper):

@@ -14,6 +14,9 @@ block moves the result by less than ``TOLS`` allows, but by far more than
 ``PALLAS_TOL``.
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,7 +27,8 @@ from repro.kernels.matmul import kernel as jkernel  # noqa: E402
 from repro.kernels.matmul.ref import gemm_reference as jnp_reference  # noqa: E402
 from repro_torch.kernels.matmul import kernel, ops  # noqa: E402
 from repro_torch.kernels.matmul.ref import gemm_reference  # noqa: E402
-from repro_torch.kernels.matmul.space import (GemmProblem,  # noqa: E402
+from repro_torch.kernels.matmul.space import (SMALL_SHAPE,  # noqa: E402
+                                              GemmProblem, build_space,
                                               inputs_from_numpy, numpy_inputs)
 
 TOLS = {"f32": 5e-3, "bf16": 2e-2}
@@ -133,15 +137,70 @@ def test_cpu_dispatch_runs_the_plain_version_and_launches_nothing():
     assert ops.gemm.launches == before
 
 
-def test_default_config_is_in_the_space():
-    prob = GemmProblem(device="cpu")
+SHAPES = {"paper": (4096, 4096, 4096), "small": tuple(SMALL_SHAPE.values())}
+
+
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_default_config_is_in_the_space(shape):
+    prob = GemmProblem(shape=dict(zip("mnk", SHAPES[shape])), device="cpu")
     assert prob.space.satisfies(ops.DEFAULT_CONFIG)
+
+
+@pytest.mark.parametrize("tile,want", [
+    # 1024 B of alignment slack, stages x (block_m + block_n) x block_k
+    # bf16, and two 8-byte mbarriers for each of four stages
+    ((128, 256, 64, 4), 1024 + 4 * (128 + 256) * 64 * 2 + 64),    # 197 696
+    ((64, 64, 32, 2), 1024 + 2 * (64 + 64) * 32 * 2 + 64),        # 17 472
+    ((256, 64, 64, 3), 1024 + 3 * (256 + 64) * 64 * 2 + 64)],     # 123 968
+    ids=["128x256x64_s4", "64x64x32_s2", "256x64x64_s3"])
+def test_smem_bytes_matches_a_hand_count(tile, want):
+    assert kernel.smem_bytes(*tile) == want
+    cols = [np.array([v, v]) for v in tile]
+    assert (kernel.smem_bytes(*cols) == want).all()
+
+
+SOURCE = Path(kernel.__file__).resolve().parents[2] / "csrc" / kernel.SOURCE
+
+
+def _source_menu() -> tuple[set, dict]:
+    """``GEMM_TILES``'s (block_m, block_n, warps) and the constants the
+    shared-memory count mirrors, read from the CUDA source."""
+    text = SOURCE.read_text()
+    block = text[text.index("#define GEMM_TILES(X)"):]
+    block = block[:block.index("\n\n")]
+    tiles = {tuple(int(v) for v in t)
+             for t in re.findall(r"X\((\d+), (\d+), (\d+)\)", block)}
+    consts = {name: int(v) for name, v in re.findall(
+        r"constexpr int (MAX_STAGES|ALIGN|MAX_ACC) = (\d+);", text)}
+    return tiles, consts
+
+
+def test_compiled_menu_mirrors_the_source():
+    tiles, consts = _source_menu()
+    assert tiles == set(kernel.TILES) and len(tiles) == len(kernel.TILES)
+    assert consts == {"MAX_STAGES": max(kernel.STAGES),
+                      "ALIGN": kernel.SMEM_ALIGN,
+                      "MAX_ACC": kernel.MAX_ACC_PER_THREAD}
+    assert kernel.SMEM_BARRIERS == 2 * consts["MAX_STAGES"] * 8
+
+
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_every_admitted_config_is_compiled(shape):
+    """The space admits exactly the compiled menu: each admitted tile is in
+    ``GEMM_TILES`` and each (layout, block_k) is a built variant, and every
+    tile of the menu is admitted."""
+    space = build_space(*SHAPES[shape])
+    admitted = {(c["block_m"], c["block_n"], c["warps"])
+                for c in space.valid_configs()}
+    assert admitted == _source_menu()[0]
+    assert {f"{c['rhs_layout']}_bk{c['block_k']}"
+            for c in space.valid_configs()} == set(kernel.VARIANTS)
 
 
 def _bad(case):
     t, _ = both(4, 128, 128, 256)
     a, b, c = t["a"], t["b"], t["c"]
-    cfg = dict(ops.DEFAULT_CONFIG)
+    cfg = dict(ops.DEFAULT_CONFIG, block_m=128, block_n=128)  # fits 128^2
     if case == "layout":
         return a, b.t().contiguous(), c, cfg             # (N, K) for "kn"
     if case == "contiguity":
@@ -156,6 +215,9 @@ def _bad(case):
 @pytest.mark.parametrize("case", ["layout", "contiguity", "divisibility",
                                   "split_depth", "shape"])
 def test_dispatch_raises_on_what_the_kernel_cannot_take(case):
+    t, _ = both(4, 128, 128, 256)
+    ok_cfg = dict(ops.DEFAULT_CONFIG, block_m=128, block_n=128)
+    ops.check(t["a"], t["b"], t["c"], ok_cfg)       # the unaltered case
     a, b, c, cfg = _bad(case)
     with pytest.raises(ValueError):
         ops.gemm(a, b, c, 1.0, 1.0, cfg)
