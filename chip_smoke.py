@@ -10,13 +10,16 @@ Phases, each timed:
 2. build     — builds every kernel of the port from ``src/repro_torch/csrc``
                with nvcc, all sources and variants at once, and checks that
                no compiled tile spills, that every tile launches the
-               largest block its space admits, and that the GEMM
-               libraries' SASS issues wgmma and TMA loads and no mma.sync.
+               largest block its space admits, and that the GEMM and
+               attention libraries' SASS issues wgmma and TMA loads and no
+               mma.sync (printing what ptxas said of wgmma and setmaxnreg).
 3. parity    — each kernel against its plain PyTorch version on the card, on
                configs that together take every value of every parameter at
                small shapes (GEMM 256x256x512, every compiled tile at every
-               stage count; attention 4 q heads, 2 kv
-               heads, 256 x 256, d 64, causal and full, and 128 x 256;
+               stage count; attention 4 q heads, 2 kv heads, 256 x 256, d
+               64, causal and full, and 128 x 256, and every compiled
+               (d, block_kv, warpgroups) at 8 q heads, 2 kv heads
+               and d 64 and 128, 256 x 256 causal and full and 128 x 256;
                N-body 512 and 4096 bodies; pnpoly 1536 points and a
                17-gon; conv2d 48 x 160 with a 5 x 5 filter and 300 x 600
                with 15 x 15; hotspot 48 x 144 with 4 sweeps and 224 x 324
@@ -57,9 +60,13 @@ Phases, each timed:
                the port never calls; each the median of cold-L2 CUDA-event
                repeats; GEMM's tuned config also at each ring depth, with
                B's other layout and a bf16 accumulator, and a 128 x 128
-               tile on one and two consumer warpgroups.  No single PyTorch call computes nbody, pnpoly,
-               hotspot (600 dependent sweeps), expdist or dedisp (each
-               several ops), so their ``library_ms`` is null.
+               tile on one and two consumer warpgroups; attention's tuned
+               config also with skip_masked and acc_dtype flipped, and at
+               every (block_q, block_h) of the group (one or two consumer
+               warpgroups), each with its TFLOP/s and share of the bound.
+               No single PyTorch call computes nbody, pnpoly, hotspot
+               (600 dependent sweeps), expdist or dedisp (each several
+               ops), so their ``library_ms`` is null.
 
 Prints the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  A kernel's ``launches`` counts its wrapper's calls on its path;
@@ -141,11 +148,12 @@ def bound(flops: float, f32_inst: float, nbytes: float,
     return max(ops_s, bytes_s), "operations" if ops_s >= bytes_s else "bytes"
 
 
-def gemm_sass(built, failures: list[str]) -> dict:
-    """Count the GEMM libraries' tensor-core and TMA instructions in their
-    SASS (``cuobjdump``): each must issue wgmma (HGMMA) and TMA loads
-    (UTMALDG), and none the older mma.sync (HMMA).  Also print what ptxas
-    said about wgmma or setmaxnreg in each build log."""
+def sass_check(name: str, built, failures: list[str]) -> dict:
+    """Count a tensor-core kernel's libraries' tensor-core and TMA
+    instructions in their SASS (``cuobjdump``): each must issue wgmma
+    (HGMMA) and TMA loads (UTMALDG), and none the older mma.sync (HMMA).
+    Also print what ptxas said about wgmma or setmaxnreg in each build
+    log."""
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = {}
@@ -157,12 +165,12 @@ def gemm_sass(built, failures: list[str]) -> dict:
         log = (lib.parent / f"{variant}.log").read_text()
         notes = sorted({line.strip() for line in log.splitlines()
                         if "wgmma" in line or "setmaxnreg" in line})
-        print(f"  gemm {variant}: SASS HGMMA {n['HGMMA']}, HMMA {n['HMMA']}, "
-              f"UTMALDG {n['UTMALDG']}; ptxas on wgmma/setmaxnreg: "
-              f"{notes or 'nothing'}")
+        print(f"  {name} {variant}: SASS HGMMA {n['HGMMA']}, HMMA "
+              f"{n['HMMA']}, UTMALDG {n['UTMALDG']}; ptxas on "
+              f"wgmma/setmaxnreg: {notes or 'nothing'}")
         if not n["HGMMA"] or not n["UTMALDG"] or n["HMMA"]:
-            failures.append(f"gemm {variant}: expected wgmma and TMA and no "
-                            f"mma.sync in its SASS, counted {n}")
+            failures.append(f"{name} {variant}: expected wgmma and TMA and "
+                            f"no mma.sync in its SASS, counted {n}")
         out[variant] = dict(n, ptxas=notes)
     return out
 
@@ -184,6 +192,22 @@ def gemm_parity_configs(space, kernel) -> list[dict]:
         if not space.satisfies(cfg):
             cfg["unroll_k"] = 1
         cfgs.append(cfg)
+    return cfgs
+
+
+def attention_parity_configs(kernel) -> list[dict]:
+    """Every compiled (block_kv, warpgroups) of the attention menu, with (block_q, block_h) cycled through the GQA group of 4's
+    blocks of that many rows and skip_masked and acc_dtype cycled, so that
+    each of their values appears: one head dim's small-shape parity set."""
+    pairs = {rows: [(bq, bh) for bh in (1, 2, 4) for bq in kernel.BLOCK_Q
+                    if bq * bh == rows] for rows in kernel.ROWS}
+    cfgs = []
+    for i, (bkv, wg) in enumerate(kernel.TILES):
+        choice = pairs[wg * kernel.ROWS_PER_WARPGROUP]
+        bq, bh = choice[i % len(choice)]
+        cfgs.append({"block_q": bq, "block_kv": bkv, "block_h": bh,
+                     "skip_masked": (i // 2) % 2,
+                     "acc_dtype": ("f32", "bf16")[(i // 3) % 2]})
     return cfgs
 
 
@@ -328,10 +352,9 @@ def main(argv=None) -> int:
                  for c in full.space.valid_configs()})},
             # every compiled attention tile: d 128 runs the full shape, d 64
             # the small one
-            "flash_attention": {(d, bkv, w): fkernel.tile_attributes(d, bkv, w)
-                                for d in fkernel.HEAD_DIMS
-                                for bkv in fkernel.BLOCK_KV
-                                for w in fkernel.WARPS},
+            "flash_attention": {(d, bkv, wg): fkernel.tile_attributes(
+                d, bkv, wg) for d in fkernel.HEAD_DIMS
+                for bkv, wg in fkernel.TILES},
             # every compiled tile of the three f32 kernels
             "nbody": {(u, m, d): nkernel.tile_attributes(u, m, d)
                       for u in nkernel.UNROLL_J
@@ -376,15 +399,18 @@ def main(argv=None) -> int:
             if short:
                 failures.append(f"{name} tiles cannot launch {most} threads: "
                                 f"{short}")
-        for (d, bkv, w), a in tiles["flash_attention"].items():
-            print(f"  attention d={d} block_kv={bkv} warps={w}: "
-                  f"{a['regs']} registers, {a['smem_bytes']} B shared")
+        for (d, bkv, wg), a in tiles["flash_attention"].items():
+            print(f"  attention d={d} block_kv={bkv} warpgroups={wg}: "
+                  f"{a['regs']} registers at entry, {a['local_bytes']} B "
+                  f"local, {a['smem_bytes']} B shared")
         for t, a in tiles["gemm"].items():
             if t[-1] == max(kernel.STAGES):
                 print(f"  gemm {t[0]} {t[1]}x{t[2]}x{t[3]} warps={t[4]}: "
                       f"{a['regs']} registers at entry, {a['smem_bytes']} B "
                       f"shared with {t[5]} stages")
-        record["gemm_sass"] = gemm_sass(built[kernel.SOURCE], failures)
+        record["sass"] = {
+            name: sass_check(name, built[KERNELS[name][0].SOURCE], failures)
+            for name in ("gemm", "flash_attention")}
         record["build_s"] = build_s
 
     worst = {k: {"rel_l2": 0.0, "max_abs_err": 0.0, "controls": 0,
@@ -599,6 +625,19 @@ def main(argv=None) -> int:
             attention_parity(cfg, xa, True)
             attention_parity(cfg, xa, False)
             attention_parity(cfg, xr, True)
+        menu = attention_parity_configs(fkernel)
+        print(f"attention: every compiled (d, block_kv, warpgroups), "
+              f"{len(menu)} a head dim, at 8 q heads and 2 kv heads, 256 x "
+              f"256 causal and full and 128 x 256")
+        for dh in fkernel.HEAD_DIMS:
+            xg = inputs_from_numpy(numpy_inputs(5, 8, 2, 256, 256, dh),
+                                   "cuda")
+            xgr = inputs_from_numpy(numpy_inputs(6, 8, 2, 128, 256, dh),
+                                    "cuda")
+            for cfg in menu:
+                attention_parity(cfg, xg, True)
+                attention_parity(cfg, xg, False)
+                attention_parity(cfg, xgr, True)
         xaf = ffull.make_inputs(seed=4, small=False)
         abig = [dict(fops.DEFAULT_CONFIG)] + ffull.space.sample_distinct(2, 9)
         print(f"attention: {len(abig)} configs at {ffull.shape}")
@@ -1002,11 +1041,38 @@ def main(argv=None) -> int:
         print(f"  median {at_best * 1e3:.4f} ms = "
               f"{4.0 * d * pairs / at_best / 1e12:.1f} TFLOP/s = "
               f"{abound_s / at_best:.1%} of the {abound_s * 1e3:.4f} ms "
-              f"bound ({abound_by})")
+              f"bound ({abound_by})"
+              + ("" if alib_s is None else
+                 f" = {at_best / alib_s:.3f}x library_ms"))
         print(f"attention default config {adefault.objective * 1e3:.4f} ms; "
               f"plain version {aplain_s * 1e3:.3f} ms; library_ms "
               f"(scaled_dot_product_attention) "
               f"{'n/a' if alib_s is None else f'{alib_s * 1e3:.4f}'} ms")
+        # the tuned config with skip_masked and acc_dtype flipped, and at
+        # every (block_q, block_h) of the group: one consumer warpgroup (64
+        # rows) or two (128)
+        asweep = {}
+        achanges = [{"skip_masked": 1 - abest.config["skip_masked"]},
+                    {"acc_dtype": {"f32": "bf16", "bf16": "f32"}[
+                        abest.config["acc_dtype"]]}] \
+            + [{"block_q": bq, "block_h": bh}
+               for bh in ffull.space.param("block_h").values
+               for bq in fkernel.BLOCK_Q if bq * bh in fkernel.ROWS]
+        for change in achanges:
+            cfg = dict(abest.config, **change)
+            if cfg == abest.config or not ffull.space.satisfies(cfg):
+                continue
+            t_s = ffull.evaluate(cfg).objective
+            label = " ".join(f"{k}={v}" for k, v in change.items())
+            asweep[label] = t_s * 1e3
+            wgs = fkernel.warpgroups(cfg["block_q"], cfg["block_h"])
+            print(f"  tuned with {label} ({wgs} consumer warpgroups): "
+                  f"{t_s * 1e3:.4f} ms = "
+                  f"{4.0 * d * pairs / t_s / 1e12:.1f} TFLOP/s = "
+                  f"{abound_s / t_s:.1%} of the bound")
+        print(f"  (the products it issues are 1.5x the bound's, P as bf16 hi "
+              f"+ lo: their floor is {1.5 * abound_s * 1e3:.4f} ms)")
+        record["attention_sweep_ms"] = asweep
 
         f32_lines = []
         torch.backends.cudnn.benchmark = True

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks in PTX, shared by the port's tensor-core
-// kernels: mbarriers, TMA tile loads, the wgmma shared-memory descriptor, the
-// wgmma issue wrappers and their fences, register reallocation between
-// warpgroups, and, on the host, the TMA tensor map.
+// kernels (gemm.cu, flash_attention.cu): mbarriers, TMA tile loads, the
+// wgmma shared-memory descriptor, the wgmma issue wrappers (A from shared
+// memory or from registers) and their fences, named barriers, register
+// reallocation between warpgroups, and, on the host, the TMA tensor map.
 //
 // wgmma and setmaxnreg exist only for sm_90a (the build's -gencode target);
 // TMA and mbarriers for every sm_90.
@@ -141,14 +142,38 @@ __device__ __forceinline__ void fence_operands(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// The same for the bf16 pairs of a register A operand (wgmma_*_rs): they may
+// not be rewritten before the wgmma_wait that retires their product.
+template <int N>
+__device__ __forceinline__ void fence_operands(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
 // D(64 x N, f32, registers) += A(64 x 16, bf16, K-major in shared memory)
-// * B(16 x N, bf16, shared memory; TNSP_B 0 K-major, 1 MN-major).  Thread
+// * B(16 x N, bf16, shared memory; TNSP_B 0 K-major, 1 MN-major); with
+// scale_d 0 (N 32 to 128), D = A * B and D's old values are not read.  Thread
 // t of the warpgroup holds rows 16 * (t / 32) + (t % 32) / 4 (+ 8) and,
 // for j < N / 8, columns 8 j + 2 (t % 4) (+ 1): d[4 j .. 4 j + 3] are
 // (row, col), (row, col + 1), (row + 8, col), (row + 8, col + 1).
 template <int TNSP_B>
+__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t desc_a,
+                                                uint64_t desc_b, int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, %19;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TNSP_B));
+}
+
+template <int TNSP_B>
 __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t desc_a,
-                                                uint64_t desc_b) {
+                                                uint64_t desc_b, int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -163,12 +188,12 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t desc_a,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TNSP_B));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TNSP_B));
 }
 
 template <int TNSP_B>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a,
-                                                uint64_t desc_b) {
+                                                uint64_t desc_b, int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -193,7 +218,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TNSP_B));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TNSP_B));
 }
 
 template <int TNSP_B>
@@ -244,6 +269,78 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TNSP_B));
+}
+
+// D(64 x N, f32, registers) += A(64 x 16, bf16, registers) * B(16 x N,
+// bf16, shared memory; TNSP_B 0 K-major, 1 MN-major): the register-A (RS)
+// form.  Thread t holds A's rows 16 * (t / 32) + (t % 32) / 4 (+ 8) and
+// columns 2 (t % 4) (+ 1) and 8 + 2 (t % 4) (+ 1), as bf16 pairs: a[0] (row,
+// col), a[1] (row + 8, col), a[2] (row, col + 8), a[3] (row + 8, col + 8).
+// That is the f32 accumulator layout above for a 16-column chunk c, so
+// a[i] = pair(d[8 c + 2 i], d[8 c + 2 i + 1]) with no shuffle.  Call
+// wgmma_fence() after writing a, and keep a unchanged until the wgmma_wait
+// that retires the product.
+template <int TNSP_B>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                   uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(TNSP_B));
+}
+
+template <int TNSP_B>
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4],
+                                                   uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1), "n"(TNSP_B));
+}
+
+// ---- named barriers --------------------------------------------------------
+
+// Barrier `id` (1 to 15; 0 is __syncthreads') among `threads` threads of
+// the block, a multiple of 32: sync waits until all of them have reached
+// it, arrive counts the calling warp in and goes on.  With them two
+// consumer warpgroups can take turns without the producer.
+__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // ---- registers -------------------------------------------------------------

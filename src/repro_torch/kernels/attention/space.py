@@ -3,14 +3,14 @@ evaluator.
 
 The space keeps the reference's parameters (``block_q``, ``block_kv``,
 ``block_h``, ``skip_masked``, ``acc_dtype``) with Hopper's ranges
-(``csrc/flash_attention.cu``): a warp owns 16 query rows of one head, so a
-block runs ``block_h * block_q / 16`` warps, at most 8; a kv tile is at
-most 128 rows, so that S, the output accumulator and Q fit one thread's
-registers without spills at d = 128.  Every block divides its dimension:
-the kernel does not pad, since padded K rows would enter the softmax.  Its
-constraints admit exactly the configs the compiled libraries can launch, so
-a failed launch is a fault in the space or the kernel, never a silently
-invalid trial.
+(``csrc/flash_attention.cu``).  A block stacks ``block_h`` heads of
+``block_q`` rows into whole 64-row ``wgmma`` tiles, one consumer warpgroup
+each, so ``block_h * block_q`` is 64 or 128; a kv tile is at most 128 rows, so that S, P and the output
+accumulator fit one consumer thread's registers without spills at d = 128.
+Every block divides its dimension: the kernel does not pad, since padded K
+rows would enter the softmax.  Its constraints admit exactly the configs
+the compiled libraries can launch, so a failed launch is a fault in the
+space or the kernel, never a silently invalid trial.
 """
 
 from __future__ import annotations
@@ -29,16 +29,27 @@ def build_space(hq: int, hkv: int, tq: int, tk: int,
                 d: int) -> SearchSpace:
     """The ``flash_attention_h100`` space for one shape."""
     g = hq // hkv
+    # the reference's menu trimmed to the GQA group, as it trims it; and
+    # block_q trimmed to the values some block_h makes whole warpgroups of
+    block_h = tuple(v for v in (1, 2, 4, 8) if v <= g and g % v == 0)
     params = [
-        Param("block_q", kernel.BLOCK_Q),
+        Param("block_q", tuple(q for q in kernel.BLOCK_Q
+                               if any(q * h in kernel.ROWS
+                                      for h in block_h))),
         Param("block_kv", kernel.BLOCK_KV),
-        # the reference's menu trimmed to the GQA group, as it trims it
-        Param("block_h", tuple(v for v in (1, 2, 4, 8)
-                               if v <= g and g % v == 0)),
+        Param("block_h", block_h),
         Param("skip_masked", (0, 1)),
         Param("acc_dtype", ("f32", "bf16")),
     ]
-    max_warps = max(kernel.WARPS)
+
+    def whole(c):
+        r = kernel.block_rows(c["block_q"], c["block_h"])
+        return (r == kernel.ROWS[0]) | (r == kernel.ROWS[1])
+
+    def smem_ok(c):
+        return kernel.smem_bytes(c["block_q"], c["block_h"], c["block_kv"],
+                                 d) <= SMEM_PER_BLOCK
+
     constraints = [
         # the reference's fits, tightened to what the kernel needs: every
         # block divides its dimension
@@ -48,16 +59,11 @@ def build_space(hq: int, hkv: int, tq: int, tk: int,
                    & (tk % c["block_kv"] == 0)),
         Constraint("gqa_group", lambda c: g % c["block_h"] == 0,
                    vec=lambda c: g % c["block_h"] == 0),
-        # a block of at most 8 warps of 16 rows each (one warp per 16 rows
-        # of one head, its accumulator in registers)
-        Constraint("warps", lambda c: kernel.warps(c["block_q"], c["block_h"])
-                   <= max_warps,
-                   vec=lambda c: kernel.warps(c["block_q"], c["block_h"])
-                   <= max_warps),
-        Constraint("smem", lambda c: kernel.smem_bytes(c["block_kv"], d)
-                   <= SMEM_PER_BLOCK,
-                   vec=lambda c: kernel.smem_bytes(c["block_kv"], d)
-                   <= SMEM_PER_BLOCK),
+        # a block is whole warpgroups: 64 or 128 stacked rows, one
+        # consumer warpgroup per 64 (wgmma's M)
+        Constraint("warpgroups", lambda c: bool(whole(c)), vec=whole),
+        Constraint("smem", lambda c: bool(smem_ok(c)), vec=smem_ok),
+        # S, P and O of a consumer thread within the register budget
         Constraint("registers", lambda c: kernel.frag_regs(c["block_kv"], d)
                    <= kernel.MAX_FRAG_REGS,
                    vec=lambda c: kernel.frag_regs(c["block_kv"], d)

@@ -12,7 +12,9 @@ Port of ``repro.kernels.common``.  Each kernel package provides:
 
 from __future__ import annotations
 
-from typing import Any, Callable
+import functools
+import math
+from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
@@ -33,6 +35,90 @@ def cdiv(a: int, b: int) -> int:
 
 def round_up(a: int, b: int) -> int:
     return cdiv(a, b) * b
+
+
+def admits(space: SearchSpace, config: Config) -> bool:
+    """Whether ``space`` holds ``config``: each value in its parameter's
+    menu and every constraint met."""
+    return all(config[p.name] in p.values for p in space.params) \
+        and space.satisfies(config)
+
+
+def _distance(config: Config, default: Config) -> tuple[int, float]:
+    """How far ``config`` is from ``default``: the parameters that differ,
+    then, among those, how far apart their values are (log2 of the ratio
+    of two positive numbers, else 1)."""
+    n, spread = 0, 0.0
+    for name, want in default.items():
+        got = config[name]
+        if got == want:
+            continue
+        n += 1
+        numeric = all(isinstance(x, (int, float)) and not isinstance(x, bool)
+                      and x > 0 for x in (got, want))
+        spread += abs(math.log2(got / want)) if numeric else 1.0
+    return n, spread
+
+
+def fitting_config(space: SearchSpace, default: Config,
+                   keep: Sequence[str] = ()) -> Config | None:
+    """The config an op runs at the shape ``space`` was built for when its
+    caller names none: ``default`` where the space admits it, else the
+    admitted config nearest to it (fewest parameters changed, then the
+    nearest values, then the space's order) among those that keep
+    ``default``'s values of ``keep`` (the parameters that change the
+    function's numerics or the operands' layout, not just its tiling).
+    ``None`` where no such config fits."""
+    if admits(space, default):
+        return dict(default)
+    same = [c for c in space.valid_configs()
+            if all(c[k] == default[k] for k in keep)]
+    if not same:
+        return None
+    return dict(min(same, key=lambda c: _distance(c, default)))
+
+
+@functools.lru_cache(maxsize=1024)
+def _fitting_at(build_space: Callable[..., SearchSpace], shape: tuple,
+                default: tuple, keep: tuple) -> Config | None:
+    try:
+        space = build_space(**dict(shape))
+    except ValueError:              # a parameter with no value at the shape
+        return None
+    return fitting_config(space, dict(default), keep)
+
+
+def config_at(build_space: Callable[..., SearchSpace], shape: dict,
+              default: Config, keep: Sequence[str] = ()) -> Config | None:
+    """:func:`fitting_config` over ``build_space(**shape)``, or None where
+    no config fits (a space with no value of some parameter at the shape
+    included).  One cache serves every op, keyed by the space builder, the
+    shape, the default and ``keep``, so that a call does not rebuild the
+    space; treat the dict as read-only."""
+    return _fitting_at(build_space, tuple(shape.items()),
+                       tuple(default.items()), tuple(keep))
+
+
+config_at.cache_info = _fitting_at.cache_info
+config_at.cache_clear = _fitting_at.cache_clear
+
+
+def resolve_config(op: str, build_space: Callable[..., SearchSpace],
+                   shape: dict, default: Config, keep: Sequence[str],
+                   device: torch.device) -> Config:
+    """The config of a call that names none: :func:`config_at` at the
+    call's shape.  Where no config of the kernel's space fits, the CPU runs
+    ``default``, which the plain version takes with a ragged last tile (its
+    tiling decides where a tile ends, not what it computes); any other
+    device raises a ValueError that names the shape."""
+    cfg = config_at(build_space, shape, default, keep)
+    if cfg is not None:
+        return dict(cfg)
+    if device.type != "cpu":
+        dims = ", ".join(f"{k}={v}" for k, v in shape.items())
+        raise ValueError(f"{op}: no config of the kernel's space fits "
+                         f"{dims}")
+    return dict(default)
 
 
 def inputs_from_numpy(arrays: dict, device=None,

@@ -1,14 +1,19 @@
 """Public 2-D convolution op: the Hopper kernel for CUDA tensors, the plain
-version for CPU tensors, a count of kernel launches (``conv2d.launches``, one
-a call) and one of the CUDA kernels the calls issue
+version for CPU tensors, a count of kernel launches (``conv2d.launches``,
+one a call) and one of the CUDA kernels the calls issue
 (``conv2d.device_launches``: two where a bf16 filter is first rounded for
-constant memory, else one)."""
+constant memory, else one).  With no config from the caller it runs
+:data:`DEFAULT_CONFIG` where that fits the shape, else the nearest config
+the space admits there (:func:`~repro_torch.kernels.common.resolve_config`);
+where none fits (an output narrower than the smallest block), the CPU runs
+the plain version with the default and a CUDA tensor raises."""
 
 from __future__ import annotations
 
 import torch
 
 from ...device import HOPPER
+from ..common import resolve_config
 from . import kernel
 
 #: measured over the whole ``conv2d_h100`` space at the default shape on an
@@ -18,13 +23,14 @@ from . import kernel
 DEFAULT_CONFIG = {"block_h": 32, "block_w": 32, "unroll_fh": 15,
                   "unroll_fw": 15, "row_chunk": 8, "acc_dtype": "f32",
                   "filter_smem": 0}
+#: what a resolved config keeps of the default: its accumulator
+SEMANTIC = ("acc_dtype",)
 
 
-def check(image: torch.Tensor, filt: torch.Tensor, cfg: dict) -> None:
-    """Raise ValueError unless the operands and config fit the kernel: 2-D
-    f32, contiguous, on one device, a square filter no larger than the
-    image, and a block of 32 to 512 threads from the compiled menus
-    (``row_chunk`` dividing ``block_h``)."""
+def check_operands(image: torch.Tensor, filt: torch.Tensor) -> None:
+    """Raise ValueError unless the operands fit the op: 2-D f32,
+    contiguous, on one device, and a square filter no larger than the
+    image."""
     for name, t in (("image", image), ("filt", filt)):
         if t.dim() != 2 or not t.is_contiguous() or t.dtype != torch.float32:
             raise ValueError(f"conv2d: {name} must be a contiguous 2-D f32 "
@@ -36,6 +42,14 @@ def check(image: torch.Tensor, filt: torch.Tensor, cfg: dict) -> None:
     if fh != fw or fh > min(image.shape):
         raise ValueError(f"conv2d: filter {tuple(filt.shape)} must be square "
                          f"and fit the image {tuple(image.shape)}")
+
+
+def check(image: torch.Tensor, filt: torch.Tensor, cfg: dict) -> None:
+    """Raise ValueError unless the operands and config fit the kernel: the
+    operands as :func:`check_operands` says, and a block of 32 to 512
+    threads from the compiled menus (``row_chunk`` dividing
+    ``block_h``)."""
+    check_operands(image, filt)
     bh, bw, rc = cfg["block_h"], cfg["block_w"], cfg["row_chunk"]
     if bh not in kernel.BLOCK_H or bw not in kernel.BLOCK_W \
             or rc not in kernel.ROW_CHUNK or bh % rc \
@@ -55,13 +69,20 @@ def conv2d(image: torch.Tensor, filt: torch.Tensor,
            config: dict | None = None) -> torch.Tensor:
     """The 'valid' correlation of ``image`` (H, W) with ``filt`` (F, F),
     (H - F + 1, W - F + 1) f32, under ``config`` (completed from
-    :data:`DEFAULT_CONFIG`; the unroll factors snap to divisors of F).
+    :data:`DEFAULT_CONFIG`, whose unroll factors snap to divisors of F;
+    with none, the one it resolves at this shape).
     CUDA tensors run the kernel, or raise; CPU tensors run
     :func:`kernel.conv2d_plain`."""
-    cfg = dict(DEFAULT_CONFIG)
     if config:
-        cfg.update(config)
-    check(image, filt, cfg)
+        cfg = dict(DEFAULT_CONFIG, **config)
+        check(image, filt, cfg)
+    else:
+        from .space import build_space  # space.py imports this module
+        check_operands(image, filt)
+        (h, w), (fh, fw) = image.shape, filt.shape
+        cfg = resolve_config(
+            "conv2d", build_space, {"h": h, "w": w, "fh": fh, "fw": fw},
+            DEFAULT_CONFIG, SEMANTIC, image.device)
     if image.device.type == "cpu":
         return kernel.conv2d_plain(image, filt, **cfg)
     if image.device.type != "cuda":

@@ -1,14 +1,18 @@
-"""Public ExpDist op: the Hopper kernel for CUDA tensors, the plain version
-for CPU tensors, a count of kernel launches (``expdist.launches``, one a
-call) and one of the CUDA kernels the calls issue
-(``expdist.device_launches``: two a call, the kernel and the partials' sum,
-both issued from C)."""
+"""Public ExpDist op: the Hopper kernel for CUDA tensors, the plain version for
+CPU tensors, a count of kernel launches (``expdist.launches``, one a call)
+and one of the CUDA kernels the calls issue (``expdist.device_launches``:
+two a call, the kernel and the partials' sum, both issued from C).  With no
+config from the caller it runs :data:`DEFAULT_CONFIG` where that fits the
+shape, else the nearest config the space admits there
+(:func:`~repro_torch.kernels.common.resolve_config`: at a small kb, fewer
+column blocks than the default's 64; one column block fits every kb)."""
 
 from __future__ import annotations
 
 import torch
 
 from ...device import HOPPER
+from ..common import resolve_config
 from . import kernel
 
 #: from the ``expdist_h100`` space measured whole (2700 configs) at the
@@ -20,6 +24,8 @@ from . import kernel
 DEFAULT_CONFIG = {"block_i": 512, "block_j": 256, "use_column": 0,
                   "n_y_blocks": 64, "unroll_j": 4, "exp_variant": "exp2",
                   "compute_dtype": "f32"}
+#: what a resolved config keeps of the default: its arithmetic
+SEMANTIC = ("exp_variant", "compute_dtype")
 
 
 def check(a: torch.Tensor, b: torch.Tensor, sa: torch.Tensor,
@@ -63,11 +69,17 @@ def expdist(a: torch.Tensor, b: torch.Tensor, sa: torch.Tensor,
             sb: torch.Tensor, config: dict | None = None) -> torch.Tensor:
     """The Gaussian-overlap distance of ``a`` (2, ka) with uncertainties
     ``sa`` (ka,) and ``b`` (2, kb) with ``sb`` (kb,): a scalar f32, under
-    ``config`` (completed from :data:`DEFAULT_CONFIG`).  CUDA tensors run
+    ``config`` (completed from :data:`DEFAULT_CONFIG`; with none, the one
+    it resolves at this kb).  CUDA tensors run
     the kernel, or raise; CPU tensors run :func:`kernel.expdist_plain`."""
-    cfg = dict(DEFAULT_CONFIG)
     if config:
-        cfg.update(config)
+        cfg = dict(DEFAULT_CONFIG, **config)
+    else:
+        from .space import build_space  # space.py imports this module
+        if b.dim() != 2 or b.shape[1] < 1:
+            raise ValueError(f"expdist: b {tuple(b.shape)} is not (2, kb)")
+        cfg = resolve_config("expdist", build_space, {"kb": b.shape[1]},
+                             DEFAULT_CONFIG, SEMANTIC, a.device)
     check(a, b, sa, sb, cfg)
     if a.device.type == "cpu":
         return kernel.expdist_plain(a, b, sa, sb, **cfg)

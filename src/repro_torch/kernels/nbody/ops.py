@@ -1,13 +1,17 @@
-"""Public N-body op: the Hopper kernel for CUDA tensors, the plain version
-for CPU tensors, a count of kernel launches (``nbody.launches``, one a call)
-and one of the CUDA kernels the calls issue (``nbody.device_launches``, also
-one a call)."""
+"""Public N-body op: the Hopper kernel for CUDA tensors, the plain version for
+CPU tensors, a count of kernel launches (``nbody.launches``, one a call) and
+one of the CUDA kernels the calls issue (``nbody.device_launches``, also one
+a call).  With no config from the caller it runs :data:`DEFAULT_CONFIG` where
+that fits the shape, else the nearest config the space admits there
+(:func:`~repro_torch.kernels.common.resolve_config`); where none fits, the
+CPU runs the plain version with the default and a CUDA tensor raises."""
 
 from __future__ import annotations
 
 import torch
 
 from ...device import HOPPER
+from ..common import resolve_config
 from . import kernel
 
 #: measured over the whole ``nbody_h100`` space at the default shape on an
@@ -17,15 +21,16 @@ from . import kernel
 DEFAULT_CONFIG = {"block_i": 512, "block_j": 512, "layout": "soa",
                   "unroll_j": 8, "rsqrt_method": "approx",
                   "compute_dtype": "f32"}
+#: what a resolved config keeps of the default: its layout and arithmetic
+SEMANTIC = ("layout", "rsqrt_method", "compute_dtype")
 
 
-def check(pos: torch.Tensor, mass: torch.Tensor | None, cfg: dict) -> None:
-    """Raise ValueError unless the operands and config fit the kernel: f32,
-    contiguous, on one device; ``pos`` (3, N) with ``mass`` (N,) for layout
-    "soa", the (N, 4) bodies with no ``mass`` for "aos"; ``block_i`` and
-    ``block_j`` within the menus and dividing N, ``unroll_j`` dividing
-    ``block_j``."""
-    aos = cfg["layout"] == "aos"
+def check_operands(pos: torch.Tensor, mass: torch.Tensor | None,
+                   layout: str) -> int:
+    """Raise ValueError unless the operands fit the op: f32, contiguous, on
+    one device; ``pos`` (3, N) with ``mass`` (N,) for layout "soa", the (N,
+    4) bodies with no ``mass`` for "aos".  Returns N."""
+    aos = layout == "aos"
     ts = (("pos", pos),) if aos else (("pos", pos), ("mass", mass))
     if aos and mass is not None:
         raise ValueError("nbody: layout 'aos' takes the (N, 4) bodies and "
@@ -40,7 +45,15 @@ def check(pos: torch.Tensor, mass: torch.Tensor | None, cfg: dict) -> None:
     want = [(n, 4)] if aos else [(3, n), (n,)]
     if [tuple(t.shape) for _, t in ts] != want:
         raise ValueError(f"nbody: shapes {[tuple(t.shape) for _, t in ts]} "
-                         f"do not fit layout {cfg['layout']!r}")
+                         f"do not fit layout {layout!r}")
+    return n
+
+
+def check(pos: torch.Tensor, mass: torch.Tensor | None, cfg: dict) -> None:
+    """Raise ValueError unless the operands and config fit the kernel: the
+    operands as :func:`check_operands` says; ``block_i`` and ``block_j``
+    within the menus and dividing N, ``unroll_j`` dividing ``block_j``."""
+    n = check_operands(pos, mass, cfg["layout"])
     bi, bj, uj = cfg["block_i"], cfg["block_j"], cfg["unroll_j"]
     if bi not in kernel.BLOCK_I or bj not in kernel.BLOCK_J \
             or uj not in kernel.UNROLL_J or n % bi or n % bj or bj % uj \
@@ -55,14 +68,18 @@ def check(pos: torch.Tensor, mass: torch.Tensor | None, cfg: dict) -> None:
 def nbody(pos: torch.Tensor, mass: torch.Tensor | None = None,
           config: dict | None = None) -> torch.Tensor:
     """Accelerations (3, N) of the bodies under ``config`` (completed from
-    :data:`DEFAULT_CONFIG`): ``pos`` (3, N) and ``mass`` (N,) for layout
-    "soa", or the (N, 4) bodies (:func:`kernel.to_aos`) for "aos".  CUDA
-    tensors run the kernel, or raise; CPU tensors run
-    :func:`kernel.nbody_plain`."""
-    cfg = dict(DEFAULT_CONFIG)
+    :data:`DEFAULT_CONFIG`; with none, the one it resolves at this N):
+    ``pos`` (3, N) and ``mass`` (N,) for layout "soa", or the (N, 4) bodies
+    (:func:`kernel.to_aos`) for "aos".  CUDA tensors run the kernel, or
+    raise; CPU tensors run :func:`kernel.nbody_plain`."""
     if config:
-        cfg.update(config)
-    check(pos, mass, cfg)
+        cfg = dict(DEFAULT_CONFIG, **config)
+        check(pos, mass, cfg)
+    else:
+        from .space import build_space  # space.py imports this module
+        n = check_operands(pos, mass, DEFAULT_CONFIG["layout"])
+        cfg = resolve_config("nbody", build_space, {"n": n}, DEFAULT_CONFIG,
+                             SEMANTIC, pos.device)
     if pos.device.type == "cpu":
         return kernel.nbody_plain(pos, mass, **cfg)
     if pos.device.type != "cuda":

@@ -1,13 +1,18 @@
 """Public point-in-polygon op: the Hopper kernel for CUDA tensors, the plain
-version for CPU tensors, a count of kernel launches (``pnpoly.launches``, one
-a call) and one of the CUDA kernels the calls issue
-(``pnpoly.device_launches``, also one a call)."""
+version for CPU tensors, a count of kernel launches (``pnpoly.launches``,
+one a call) and one of the CUDA kernels the calls issue
+(``pnpoly.device_launches``, also one a call).  With no config from the
+caller it runs :data:`DEFAULT_CONFIG` where that fits the shape, else the
+nearest config the space admits there
+(:func:`~repro_torch.kernels.common.resolve_config`: an ``unroll_v`` no
+larger than V, which always exists)."""
 
 from __future__ import annotations
 
 import torch
 
 from ...device import HOPPER
+from ..common import resolve_config
 from . import kernel
 
 #: measured over the whole ``pnpoly_h100`` space at the default shape on an
@@ -17,13 +22,15 @@ from . import kernel
 DEFAULT_CONFIG = {"block_points": 4096, "unroll_v": 8, "between_method": 0,
                   "use_method": 2, "precompute_slope": 1,
                   "coord_layout": "soa"}
+#: what a resolved config keeps of the default: its methods and layout
+SEMANTIC = ("between_method", "use_method", "coord_layout")
 
 
-def check(points: torch.Tensor, poly: torch.Tensor, cfg: dict) -> None:
-    """Raise ValueError unless the operands and config fit the kernel: f32,
-    contiguous, on one device, ``points`` laid out per ``coord_layout``
-    ((2, N) or (N, 2)), ``poly`` (2, V) with 1 <= V <= 4096, and every
-    value within the compiled menus."""
+def check_operands(points: torch.Tensor, poly: torch.Tensor,
+                   coord_layout: str) -> None:
+    """Raise ValueError unless the operands fit the op: f32, contiguous, on
+    one device, ``points`` laid out per ``coord_layout`` ((2, N) or (N,
+    2)) and ``poly`` (2, V) with 1 <= V <= 4096."""
     for name, t in (("points", points), ("poly", poly)):
         if t.dim() != 2 or not t.is_contiguous() or t.dtype != torch.float32:
             raise ValueError(f"pnpoly: {name} must be a contiguous 2-D f32 "
@@ -31,13 +38,20 @@ def check(points: torch.Tensor, poly: torch.Tensor, cfg: dict) -> None:
     if poly.device != points.device:
         raise ValueError(f"pnpoly: poly is on {poly.device}, points on "
                          f"{points.device}")
-    aos = cfg["coord_layout"] == "aos"
+    aos = coord_layout == "aos"
     if (points.shape[1] if aos else points.shape[0]) != 2 \
             or poly.shape[0] != 2 or not 1 <= poly.shape[1] <= kernel.MAX_V:
         raise ValueError(f"pnpoly: shapes points{tuple(points.shape)} "
                          f"poly{tuple(poly.shape)} do not fit coord_layout="
-                         f"{cfg['coord_layout']!r} and (2, V), V <= "
+                         f"{coord_layout!r} and (2, V), V <= "
                          f"{kernel.MAX_V}")
+
+
+def check(points: torch.Tensor, poly: torch.Tensor, cfg: dict) -> None:
+    """Raise ValueError unless the operands and config fit the kernel: the
+    operands as :func:`check_operands` says, and every value within the
+    compiled menus."""
+    check_operands(points, poly, cfg["coord_layout"])
     if cfg["block_points"] not in kernel.BLOCK_POINTS \
             or cfg["unroll_v"] not in kernel.UNROLL_V \
             or cfg["between_method"] not in kernel.BETWEEN_METHODS \
@@ -52,12 +66,18 @@ def pnpoly(points: torch.Tensor, poly: torch.Tensor,
            config: dict | None = None) -> torch.Tensor:
     """Inside flags, int32 (N,), of ``points`` ((2, N) for ``coord_layout``
     "soa", (N, 2) for "aos") against the polygon ``poly`` (2, V), under
-    ``config`` (completed from :data:`DEFAULT_CONFIG`).  CUDA tensors run
+    ``config`` (completed from :data:`DEFAULT_CONFIG`; with none, the one
+    it resolves at this shape).  CUDA tensors run
     the kernel, or raise; CPU tensors run :func:`kernel.pnpoly_plain`."""
-    cfg = dict(DEFAULT_CONFIG)
     if config:
-        cfg.update(config)
-    check(points, poly, cfg)
+        cfg = dict(DEFAULT_CONFIG, **config)
+        check(points, poly, cfg)
+    else:
+        from .space import build_space  # space.py imports this module
+        check_operands(points, poly, DEFAULT_CONFIG["coord_layout"])
+        cfg = resolve_config(
+            "pnpoly", build_space, {"n": points.shape[1], "v": poly.shape[1]},
+            DEFAULT_CONFIG, SEMANTIC, points.device)
     if points.device.type == "cpu":
         return kernel.pnpoly_plain(points, poly, **cfg)
     if points.device.type != "cuda":

@@ -25,6 +25,9 @@ Tolerances, rel-L2:
   P in place of the split, each misses Pallas by more than the tolerance.
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -37,6 +40,7 @@ from repro.staticcheck.spaceaudit import audit_space  # noqa: E402
 from repro.core import space as jspace  # noqa: E402
 from repro_torch.kernels.attention import kernel, ops  # noqa: E402
 from repro_torch.kernels.attention.ref import mha_reference  # noqa: E402
+from repro_torch.kernels.common import config_at  # noqa: E402
 from repro_torch.kernels.attention.space import (  # noqa: E402
     SMALL_SHAPE, AttentionProblem, build_space, inputs_from_numpy,
     numpy_inputs)
@@ -127,18 +131,20 @@ def _cfg(bq, bkv, bh, skip, acc):
             "skip_masked": skip, "acc_dtype": acc}
 
 
-#: every value of every parameter, causal and full, and tq != tk both ways
+#: every value of every parameter, causal and full, and tq != tk both ways;
+#: each a block of whole warpgroups (64 or 128 stacked rows), as the
+#: kernel's menu takes
 PALLAS_CASES = [
-    ((4, 2, 256, 256, 64), True, _cfg(16, 32, 1, 1, "f32")),
+    ((4, 2, 256, 256, 64), True, _cfg(64, 32, 1, 1, "f32")),
     ((4, 2, 256, 256, 64), True, _cfg(32, 64, 2, 0, "bf16")),
     ((4, 2, 256, 256, 64), False, _cfg(64, 128, 2, 1, "bf16")),
     ((4, 2, 256, 256, 64), False, _cfg(128, 32, 1, 0, "f32")),
     ((4, 2, 128, 256, 64), True, _cfg(64, 32, 1, 1, "bf16")),
     ((4, 2, 128, 256, 64), True, _cfg(128, 128, 1, 0, "f32")),
     ((4, 2, 256, 128, 64), True, _cfg(32, 32, 2, 1, "bf16")),
-    ((4, 2, 256, 128, 64), True, _cfg(16, 64, 2, 0, "f32")),
-    ((4, 2, 256, 256, 128), True, _cfg(16, 64, 1, 1, "bf16")),
-    ((8, 2, 128, 256, 128), True, _cfg(32, 128, 4, 1, "f32")),
+    ((4, 2, 256, 128, 64), True, _cfg(32, 64, 2, 0, "f32")),
+    ((4, 2, 256, 256, 128), True, _cfg(64, 64, 1, 1, "bf16")),
+    ((8, 2, 128, 256, 128), True, _cfg(16, 128, 4, 1, "f32")),
 ]
 
 
@@ -217,12 +223,90 @@ def test_space_compiles_and_audits_clean(shape):
 
 
 def test_full_space_size():
-    """108 of 144 configs at the default shape: 9 (block_q, block_h) pairs
-    of at most 8 warps, 3 kv tiles, skip and accumulator."""
+    """72 of 144 configs at the default shape: 6 (block_q, block_h) pairs
+    that stack into 64 or 128 rows (of 12), 3 kv tiles, skip and
+    accumulator.  The whole-warpgroup constraint refuses every config
+    that is refused: among blocks of whole warpgroups, the shared memory
+    (230,504 B at most, of 232,448) and the registers (192 at most) refuse
+    nothing."""
     prob = AttentionProblem(device="cpu")
-    assert (prob.space.cardinality, prob.space.compiled().n_valid) \
-        == (144, 108)
-    assert prob.space.satisfies(ops.DEFAULT_CONFIG)
+    sp = prob.space
+    assert (sp.cardinality, sp.compiled().n_valid) == (144, 72)
+    refused = [c for c in sp.enumerate(constrained=False)
+               if not sp.satisfies(c)]
+    assert all("warpgroups" in sp.violated(c) for c in refused)
+    assert max(kernel.smem_bytes(c["block_q"], c["block_h"], c["block_kv"],
+                                 128)
+               for c in sp.valid_configs()) == 230_504
+    assert sp.satisfies(ops.DEFAULT_CONFIG)
+
+
+@pytest.mark.parametrize("shape", [AttentionProblem.default_shape,
+                                   SMALL_SHAPE], ids=["full", "small"])
+def test_default_config_is_in_the_space(shape):
+    sp = build_space(*(shape[k] for k in ("hq", "hkv", "tq", "tk", "d")))
+    assert all(ops.DEFAULT_CONFIG[p.name] in p.values for p in sp.params)
+    assert sp.satisfies(ops.DEFAULT_CONFIG)
+    assert config_at(build_space, shape, ops.DEFAULT_CONFIG,
+                     ops.SEMANTIC) == ops.DEFAULT_CONFIG
+
+
+@pytest.mark.parametrize("cfg,want", [
+    # (block_q, block_h, block_kv, d): alignment slack + Q + the ring of
+    # three K and V tiles + 13 mbarriers of 8 B
+    ((128, 1, 128, 128), 1024 + 128 * 128 * 2 + 3 * 2 * 128 * 128 * 2
+     + 104),
+    ((64, 1, 32, 64), 1024 + 64 * 64 * 2 + 3 * 2 * 32 * 64 * 2 + 104),
+    ((16, 4, 64, 128), 1024 + 64 * 128 * 2 + 3 * 2 * 64 * 128 * 2 + 104),
+    ((32, 4, 128, 64), 1024 + 128 * 64 * 2 + 3 * 2 * 128 * 64 * 2 + 104),
+], ids=["largest", "smallest", "stacked4", "d64"])
+def test_smem_bytes_matches_a_hand_count(cfg, want):
+    assert kernel.smem_bytes(*cfg) == want
+    cols = [np.array([v, v]) for v in cfg]
+    assert (kernel.smem_bytes(*cols) == want).all()
+    assert want <= 232_448                    # what a block may have
+
+
+SOURCE = Path(kernel.__file__).resolve().parents[2] / "csrc" / kernel.SOURCE
+
+
+def _source_menu() -> tuple[set, dict]:
+    """``FA_TILES``'s (block_kv, warpgroups) and the constants the
+    shared-memory and register counts mirror, read from the CUDA source."""
+    text = SOURCE.read_text()
+    block = text[text.index("#define FA_TILES(X)"):]
+    block = block[:block.index("\n\n")]
+    tiles = {tuple(int(v) for v in t)
+             for t in re.findall(r"X\((\d+), (\d+)\)", block)}
+    consts = {name: int(v) for name, v in re.findall(
+        r"constexpr int (STAGES|ALIGN|MAX_FRAG) = (\d+);", text)}
+    return tiles, consts
+
+
+def test_compiled_menu_mirrors_the_source():
+    tiles, consts = _source_menu()
+    assert tiles == set(kernel.TILES) and len(tiles) == len(kernel.TILES) \
+        == 6
+    assert consts == {"STAGES": kernel.STAGES, "ALIGN": kernel.SMEM_ALIGN,
+                      "MAX_FRAG": kernel.MAX_FRAG_REGS}
+    assert kernel.SMEM_BARRIERS == (1 + 4 * consts["STAGES"]) * 8
+
+
+@pytest.mark.parametrize("shape", [AttentionProblem.default_shape,
+                                   SMALL_SHAPE, ORACLE_SHAPES[3]],
+                         ids=["full", "small", "g4_d128"])
+def test_every_admitted_config_is_compiled(shape):
+    """The space admits exactly the compiled menu: each admitted config's
+    (block_kv, warpgroups) is in ``FA_TILES`` and every tile of the
+    menu is admitted; its head dim is a built variant."""
+    if isinstance(shape, dict):
+        shape = tuple(shape[k] for k in ("hq", "hkv", "tq", "tk", "d"))
+    space = build_space(*shape)
+    admitted = {(c["block_kv"], kernel.warpgroups(c["block_q"],
+                                                  c["block_h"]))
+                for c in space.valid_configs()}
+    assert admitted == _source_menu()[0]
+    assert f"d{shape[4]}" in kernel.VARIANTS
 
 
 def test_cpu_dispatch_runs_the_plain_version_and_launches_nothing():
@@ -251,7 +335,7 @@ def _bad(case):
         return q, k, v, dict(cfg, block_h=4)              # group of 2
     if case == "divisibility":
         return q[:, :200].contiguous(), k, v, cfg
-    return q, k, v, dict(cfg, block_q=128, block_h=2)     # "warps": 16
+    return q, k, v, dict(cfg, block_q=128, block_h=2)     # "warps": 256 rows
 
 
 @pytest.mark.parametrize("case", ["contiguity", "kv_shape", "heads", "group",

@@ -14,6 +14,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels.attention import kernel as fkernel  # noqa: E402
 from repro_torch.kernels.attention import ops as fops  # noqa: E402
 from repro_torch.kernels.attention.space import AttentionProblem  # noqa: E402
+from repro_torch.kernels.attention.space import build_space  # noqa: E402
+from repro_torch.kernels.common import config_at  # noqa: E402
 from repro_torch.kernels.attention.space import (  # noqa: E402
     inputs_from_numpy, numpy_inputs)
 from repro_torch.kernels.conv2d import kernel as ckernel  # noqa: E402
@@ -36,6 +38,8 @@ from repro_torch.kernels.pnpoly import kernel as pkernel  # noqa: E402
 from repro_torch.kernels.pnpoly import ops as pops  # noqa: E402
 from repro_torch.kernels.pnpoly.space import PnpolyProblem, laid_out  # noqa: E402
 from repro_torch.kernels.matmul.space import SMALL_SHAPE, GemmProblem  # noqa: E402
+from repro_torch.kernels.matmul.space import \
+    build_space as gemm_space  # noqa: E402
 from repro_torch.quickstart import rel_l2, tolerance  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -150,6 +154,72 @@ def test_attention_kernel_matches_plain_version(hopper, shape, causal):
             f32 = fkernel.flash_attention_plain(
                 q, k, v, causal=causal, **dict(cfg, acc_dtype="f32"))
             assert rel_l2(got, f32) > err, cfg
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_every_compiled_attention_tile_matches_plain_version(hopper, d):
+    """Each (block_kv, warpgroups) of the menu, causal and full, at
+    a GQA group of 4, so that every (block_q, block_h) can stack."""
+    x = inputs_from_numpy(numpy_inputs(2, 8, 2, 256, 256, d), "cuda")
+    q, k, v = x["q"], x["k"], x["v"]
+    for i, (bkv, wg) in enumerate(fkernel.TILES):
+        rows = wg * fkernel.ROWS_PER_WARPGROUP
+        bq, bh = [(q_, h) for h in (1, 2, 4) for q_ in fkernel.BLOCK_Q
+                  if q_ * h == rows][i % 3]
+        cfg = {"block_q": bq, "block_kv": bkv, "block_h": bh,
+               "skip_masked": i % 2, "acc_dtype": ("f32", "bf16")[i // 2 % 2]}
+        for causal in (True, False):
+            got = fops.attention(q, k, v, causal=causal, config=cfg)
+            want = fkernel.flash_attention_plain(q, k, v, causal=causal,
+                                                 **cfg)
+            torch.cuda.synchronize()
+            assert torch.isfinite(got).all()
+            assert rel_l2(got, want) <= fkernel.PLAIN_TOL, cfg
+
+
+def test_ops_with_no_config_launch_the_kernel_once(hopper):
+    """At a shape the default does not fit, an op with no config resolves
+    one that does and launches its kernel once: attention at 4 q heads and
+    2 kv heads, 256 x 256, d 64 (the default's 128 rows need a block_h of
+    1, which fits, so this is the default) and GEMM at 128^3 (the
+    default's 256-row tile does not fit)."""
+    x = inputs_from_numpy(numpy_inputs(0, 4, 2, 256, 256, 64), "cuda")
+    q, k, v = x["q"], x["k"], x["v"]
+    before = fops.attention.launches
+    got = fops.attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fops.attention.launches == before + 1
+    cfg = config_at(build_space, {"hq": 4, "hkv": 2, "tq": 256, "tk": 256,
+                                  "d": 64}, fops.DEFAULT_CONFIG, fops.SEMANTIC)
+    assert rel_l2(got, fkernel.flash_attention_plain(q, k, v, **cfg)) \
+        <= fkernel.PLAIN_TOL
+    g = GemmProblem(shape={"m": 128, "n": 128, "k": 128}, device="cuda")
+    xg = g.make_inputs(seed=0, small=False)
+    before = ops.gemm.launches
+    out = ops.gemm(xg["a"], xg["b"], xg["c"], xg["alpha"], xg["beta"])
+    torch.cuda.synchronize()
+    assert ops.gemm.launches == before + 1
+    gcfg = config_at(gemm_space, {"m": 128, "n": 128, "k": 128},
+                     ops.DEFAULT_CONFIG, ops.SEMANTIC)
+    assert gcfg["block_m"] == 128
+    assert rel_l2(out, kernel.gemm_plain(xg["a"], xg["b"], xg["c"],
+                                         alpha=xg["alpha"], beta=xg["beta"],
+                                         **gcfg)) <= kernel.PLAIN_TOL
+
+
+def test_attention_launcher_refuses_what_tma_cannot_read(hopper):
+    """q two bytes off a 16-byte boundary: ``ops.check`` lets it through,
+    the launcher refuses to encode its tensor map, and nothing runs."""
+    x = inputs_from_numpy(numpy_inputs(0, 4, 2, 256, 256, 64), "cuda")
+    q, k, v = x["q"], x["k"], x["v"]
+    flat = torch.empty(q.numel() + 8, dtype=q.dtype, device=q.device)
+    q = flat[1:1 + q.numel()].view(q.shape).copy_(q)
+    assert q.is_contiguous() and q.data_ptr() % 16 != 0
+    before = fops.attention.launches
+    with pytest.raises(RuntimeError, match="attention kernel launch failed"):
+        fops.attention(q, k, v, config=fops.DEFAULT_CONFIG)
+    torch.cuda.synchronize()
+    assert fops.attention.launches == before
 
 
 def test_attention_measured_evaluator_times_the_kernel(hopper):
