@@ -23,8 +23,12 @@ Phases, each timed:
                N-body 512 and 4096 bodies; pnpoly 1536 points and a
                17-gon; conv2d 48 x 160 with a 5 x 5 filter and 300 x 600
                with 15 x 15; hotspot 48 x 144 with 4 sweeps and 224 x 324
-               with 12; expdist 384 x 320 and 5000 x 3000 points; dedisp 12
-               channels x 24 DMs and 96 x 160), and on three configs at the
+               with 12, and every compiled tile on 224 x 324 and on 30 x 30
+               (smaller than a tile); expdist 384 x 320 and 5000 x 3000
+               points; dedisp 12 channels x 24 DMs and 96 x 160, and every
+               compiled tile at the two shapes that reach them all, on the
+               problem's delay table, one where a channel's DMs share one
+               delay and one where all differ), and on three configs at the
                full shapes (GEMM: six, both layouts, split-k and a bf16
                accumulator among them); within the JAX package's tolerance and the
                tighter ``kernel.PLAIN_TOL``, with a bf16-vs-f32 control for
@@ -47,7 +51,8 @@ Phases, each timed:
                ``repro_torch.landscape.main``, which measures the whole
                space (attention, nbody, pnpoly, conv2d) or, for the three
                sampled problems, ``--samples`` distinct random configs
-               (default 1000; hotspot at most ``HOTSPOT_SAMPLES``), and
+               (default 1000; hotspot at most ``HOTSPOT_SAMPLES``; dedisp's
+               space, 336 configs at its shape, is measured whole), and
                prints the paper's five landscape results on the table.
                Each path's launch counts are set to 0 just before it and
                read just after; its kernel must have launched, no admitted
@@ -63,7 +68,10 @@ Phases, each timed:
                tile on one and two consumer warpgroups; attention's tuned
                config also with skip_masked and acc_dtype flipped, and at
                every (block_q, block_h) of the group (one or two consumer
-               warpgroups), each with its TFLOP/s and share of the bound.
+               warpgroups), each with its TFLOP/s and share of the bound;
+               hotspot's tuned tile at tt 1, 4 and 10 and power_smem 0
+               and 1; dedisp's tuned config on a table where a channel's
+               DMs share one delay, one where all differ, and the real one.
                No single PyTorch call computes nbody, pnpoly, hotspot
                (600 dependent sweeps), expdist or dedisp (each several
                ops), so their ``library_ms`` is null.
@@ -100,11 +108,10 @@ PEAK_F32_INST = 128 * 132 * 1.98e9
 #: per SM (CUDA C++ Programming Guide, arithmetic instruction throughput,
 #: cc 9.0) x 132 SMs x 1.98 GHz
 PEAK_SFU = 16 * 132 * 1.98e9
-#: configs the hotspot path's landscape measures at most: a hotspot config
-#: costs about 0.49 s to measure (seven calls of 29-115 ms), so the 1000
-#: that expdist and dedisp take would bring the script to about 1260 s of
-#: its 1200 (PERF.md section 4)
-HOTSPOT_SAMPLES = 200
+#: configs the hotspot path's landscape measures at most: the register
+#: design's configs cost about 0.2 s each to measure (seven calls of 8 to
+#: 70 ms), so it takes the 1000 that expdist takes (PERF.md section 4)
+HOTSPOT_SAMPLES = 1000
 
 
 @contextmanager
@@ -134,6 +141,19 @@ def covering_configs(space, n: int, seed: int) -> list[dict]:
             if not any(c[p.name] == v for c in cfgs):
                 cfgs.append(next(c for c in pool if c[p.name] == v))
     return cfgs
+
+
+def dedisp_tables(delays, span: int) -> dict:
+    """Three delay tables of ``delays``' shape: the problem's; one where
+    every DM of a channel shares one delay (a window read serves all of a
+    thread's DMs); one where all differ (a read each)."""
+    import torch
+    c, d = delays.shape
+    return {"real": delays,
+            "equal": torch.full_like(delays, span // 3),
+            "distinct": (torch.arange(d, device=delays.device,
+                                      dtype=torch.int32) % (span + 1))
+            .expand(c, d).contiguous()}
 
 
 def bound(flops: float, f32_inst: float, nbytes: float,
@@ -262,6 +282,7 @@ def main(argv=None) -> int:
     from repro_torch import _build, landscape, quickstart
     from repro_torch import device as devmod
     from repro_torch.core.problem import L2_FLUSH_BYTES, cuda_event_seconds
+    from repro_torch.kernels.common import admits
     from repro_torch.kernels.attention import kernel as fkernel
     from repro_torch.kernels.attention import ops as fops
     from repro_torch.kernels.attention.space import (AttentionProblem,
@@ -272,7 +293,11 @@ def main(argv=None) -> int:
     from repro_torch.kernels.conv2d.space import Conv2dProblem
     from repro_torch.kernels.dedisp import kernel as dkernel
     from repro_torch.kernels.dedisp import ops as dops
+    from repro_torch.kernels.dedisp.space import TILE_SHAPES as DEDISP_TILE_SHAPES
     from repro_torch.kernels.dedisp.space import DedispProblem
+    from repro_torch.kernels.dedisp.space import numpy_inputs as dedisp_inputs
+    from repro_torch.kernels.dedisp.space import \
+        tile_configs as dedisp_tile_configs
     from repro_torch.kernels.expdist import kernel as ekernel
     from repro_torch.kernels.expdist import ops as eops
     from repro_torch.kernels.expdist.ref import expdist_reference
@@ -280,6 +305,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels.hotspot import kernel as hkernel
     from repro_torch.kernels.hotspot import ops as hops
     from repro_torch.kernels.hotspot.space import HotspotProblem
+    from repro_torch.kernels.hotspot.space import \
+        numpy_inputs as hotspot_inputs
     from repro_torch.kernels.matmul import kernel, ops
     from repro_torch.kernels.matmul.space import SMALL_SHAPE, GemmProblem
     from repro_torch.kernels.nbody import kernel as nkernel
@@ -376,9 +403,8 @@ def main(argv=None) -> int:
                 for rc in ckernel.ROW_CHUNK for a in ("f32", "bf16")
                 for fs in (0, 1)},
             # every compiled tile of the three kernels of the sampled spaces
-            "hotspot": {(u, a, ps): hkernel.tile_attributes(u, a, ps)
-                        for u in hkernel.UNROLL_T for a in ("f32", "bf16")
-                        for ps in (0, 1)},
+            "hotspot": {t: hkernel.tile_attributes(*t)
+                        for t in hkernel.tiles()},
             "expdist": {(u, e, d): ekernel.tile_attributes(u, e, d)
                         for u in ekernel.UNROLL_J for e in ("exp", "exp2")
                         for d in ("f32", "bf16")},
@@ -393,9 +419,10 @@ def main(argv=None) -> int:
             if spills:
                 failures.append(f"{name} tiles spill: {spills}")
             # the six f32 kernels' spaces admit blocks of MAX_THREADS
+            # (hotspot's per columns a lane)
             most = getattr(KERNELS[name][0], "MAX_THREADS", None)
-            short = [t for t, a in attrs.items()
-                     if most and a["max_threads"] < most]
+            short = [t for t, a in attrs.items() if most and a["max_threads"]
+                     < (most[t[0]] if isinstance(most, dict) else most)]
             if short:
                 failures.append(f"{name} tiles cannot launch {most} threads: "
                                 f"{short}")
@@ -403,6 +430,10 @@ def main(argv=None) -> int:
             print(f"  attention d={d} block_kv={bkv} warpgroups={wg}: "
                   f"{a['regs']} registers at entry, {a['local_bytes']} B "
                   f"local, {a['smem_bytes']} B shared")
+        for (c, u, acc, ps), a in tiles["hotspot"].items():
+            print(f"  hotspot {c} columns a lane, unroll_t {u}, {acc}, "
+                  f"power_smem {ps}: {a['regs']} registers, "
+                  f"{hkernel.MAX_THREADS[c]} threads at most")
         for t, a in tiles["gemm"].items():
             if t[-1] == max(kernel.STAGES):
                 print(f"  gemm {t[0]} {t[1]}x{t[2]}x{t[3]} warps={t[4]}: "
@@ -730,6 +761,28 @@ def main(argv=None) -> int:
                 xs = prob.make_inputs(seed=3, small=False)
                 for cfg in cfgs:
                     parity(cfg, xs)
+        # every compiled hotspot tile, 12 sweeps in launches of 4, on a
+        # domain larger than its tile and on one smaller (the EDGE path)
+        print(f"hotspot: every compiled tile ({len(hkernel.tiles())}) on "
+              f"224 x 324 and 30 x 30, 12 sweeps")
+        for h, w in ((200, 300), (6, 6)):
+            xt = inputs_from_numpy(hotspot_inputs(1, h, w, 12), "cuda",
+                                   dtype=torch.float32)
+            for cfg in hkernel.tile_configs():
+                hotspot_parity(cfg, xt)
+        # every compiled dedisp tile in both acc_dtypes, on the problem's
+        # table, one where a channel's DMs share one delay, one where all
+        # differ
+        print(f"dedisp: every compiled tile ({len(dkernel.tiles())}) x "
+              f"acc_dtype at {DEDISP_TILE_SHAPES}, three delay tables")
+        for c_, d_, to_, ti_, step_ in DEDISP_TILE_SHAPES:
+            xt = inputs_from_numpy(dedisp_inputs(2, c_, d_, to_, ti_, step_),
+                                   "cuda", dtype=torch.float32)
+            for table in dedisp_tables(xt["delays"], ti_ - to_).values():
+                xtt = dict(xt, delays=table)
+                for cfg in dedisp_tile_configs(c_, d_, to_, ti_).values():
+                    for acc in ("f32", "bf16"):
+                        dedisp_parity(dict(cfg, acc_dtype=acc), xtt)
         xhf = hfull.make_inputs(seed=4, small=False)
         xef = efull.make_inputs(seed=4, small=False)
         xdf = dfull.make_inputs(seed=4, small=False)
@@ -1145,6 +1198,44 @@ def main(argv=None) -> int:
                 "tuned_config": tuned.config,
                 f"{kind}_best_ms": path["table_best_s"] * 1e3,
                 "protocol": path["protocol"], "build_s": build_s})
+
+        # hotspot's tuned tile at tt 1, 4 and 10 and power_smem 0 and 1:
+        # small tt pays device memory (each launch re-reads the domain),
+        # large tt halo work; power_smem 0 reads power through L1 at every
+        # sweep, 1 holds it in registers
+        hbest = hpath["best"].config
+        hsplit = {}
+        for tt in (1, 4, 10):
+            for ps in (0, 1):
+                cfg = dict(hbest, tt=tt, power_smem=ps)
+                if tt % cfg["unroll_t"]:
+                    cfg["unroll_t"] = 1
+                label = f"tt={tt} power_smem={ps}"
+                if not admits(hfull.space, cfg):
+                    print(f"  hotspot tuned tile with {label}: not admitted "
+                          f"{cfg}")
+                    continue
+                t_s = hfull.evaluate(cfg).objective
+                hsplit[label] = t_s * 1e3
+                print(f"  hotspot tuned tile with {label}: "
+                      f"{t_s * 1e3:.4f} ms = {hbound_s / t_s:.1%} of the "
+                      f"bound ({-(-hn // tt)} launches)")
+        record["hotspot_sweep_ms"] = hsplit
+        # dedisp's tuned config on the three tables: what the reads a
+        # distinct delay saves
+        dbest = dpath["best"].config
+        dsplit = {}
+        for tname, table in dedisp_tables(xdf["delays"], dt_in - dto).items():
+            t_s = statistics.median(cuda_event_seconds(
+                lambda: dops.dedisp(xdf["x"], table, dto, dbest),
+                repeats=5, warmup=2, flush=flush))
+            reads = dkernel.reads_per_add(table.cpu().numpy(),
+                                          dbest["unroll_d"])
+            dsplit[tname] = {"ms": t_s * 1e3, "reads_per_add": reads}
+            print(f"  dedisp tuned config on the {tname} delay table: "
+                  f"{t_s * 1e3:.4f} ms, {reads:.4f} window reads a "
+                  f"sample-add")
+        record["dedisp_tables_ms"] = dsplit
 
     lines = [
         {"name": "gemm", "route": "cuda",

@@ -12,190 +12,314 @@
 //
 //   temp, power (H, W) f32 -> out (H, W) f32, n sweeps.
 //
-// Design.  One launch advances the domain `this` sweeps (tt, or what is
-// left for the last launch).  A block owns a block_h x block_w output tile.
-// It loads its (block_h + 2 this) x (block_w + 2 this) input tile, halo and
-// all, into shared memory inside the kernel (in place of the reference's pad
-// and gather outside it), sweeps it `this` times there, ping-ponging two
-// buffers with a barrier between sweeps, and writes the tile's interior.  A
-// cell at the tile's edge has no neighbour beyond it and takes itself in
-// its place, as the reference's tiles do; that error travels one cell a
-// sweep, so the interior, `this` cells in, is exact.  A neighbour outside
-// the domain is the cell itself at every sweep, which is the oracle's
-// edge-replicated boundary, so the interior is exact over the whole domain
-// and not only on the reference's central crop.  The power tile is staged
-// in shared memory beside the two buffers (PSMEM, power_smem = 1: the
-// reference's keep_power_vmem), or read from device memory every sweep.
-// The blocks run in row-major or column-major raster (grid_order).  The
-// sweep loop runs in chunks of U sweeps unrolled (unroll_t, snapped down to
-// a divisor of the launch's sweep count, as the reference snaps it).  The C
-// launcher issues all ceil(n / tt) launches on the stream itself, so one
-// call from Python is one host round trip; the state lives in f32 between
-// launches, alternating between `out` and a scratch buffer so that the last
-// launch writes `out`.
+// Design: temporal blocking with the tile in registers.  One launch advances
+// the domain `s` sweeps (tt, or what is left for the last launch).  A block
+// owns a block_h x block_w output tile and computes it with its halo, s cells
+// deep on every side, in whole warps: a lane owns a register block of ROWS
+// rows x C consecutive columns, a warp 32 lanes side by side (32 C columns),
+// the block WY warps stacked (ROWS WY rows), with C = ceil((block_w + 2s) /
+// 32) and WY = ceil((block_h + 2s) / ROWS); the few columns and rows beyond
+// the tile with its halo are halo too.  Every lane updates all its cells on
+// every sweep.  The temperature stays in registers across the launch's
+// sweeps; a sweep moves only the edges of a lane's block:
+//   - left and right across lanes by __shfl_up_sync / __shfl_down_sync;
+//   - up and down across warps through shared memory: each warp publishes
+//     its top and bottom rows (2C stores a lane), one barrier, each lane
+//     reads the row above and below its block (2C loads); two buffers
+//     alternate, so that one barrier a sweep suffices.
+// That is 2 / C shuffles and 4 / ROWS shared accesses a cell update (the
+// shared-memory design before it made six loads and a store).  A cell at
+// the tile's edge has no neighbour beyond it and takes itself in its place
+// (shfl_up/down's own value at lane 0 and 31, the warp's own row at the top
+// and bottom warp), as the reference's tiles do; that error travels one cell
+// a sweep, so the output tile, s cells in, is exact.
+//
+// The domain's edge.  A neighbour outside the domain is the cell itself,
+// the oracle's edge-replicated boundary.  A tile is shifted to lie inside
+// the domain (its origin clamped to [0, H - ROWS WY] x [0, W - 32 C]), so a
+// tile that reaches the domain's edge has its own edge there, and the
+// tile-edge rule is the domain's rule: no block tests a cell for the
+// domain's edge, and the output is exact over the whole domain, not only on
+// the reference's central crop.  Only a domain smaller than one tile (the
+// small test shapes) runs the EDGE path, a block-uniform branch that tests
+// the cells of the last rows and columns.
+//
+// Power (power_smem, the reference's keep_power_vmem): 1 holds it on chip
+// for the whole launch, in registers beside the temperature; 0 reads it
+// from device memory (through L1) at every sweep.  The sweep loop runs in
+// chunks of U sweeps unrolled (unroll_t; the last launch snaps it down to a
+// divisor of its sweep count), so that the buffer parity is static inside a
+// chunk.  The C launcher issues all ceil(n / tt) launches on the stream
+// itself; the state lives in f32 between launches, alternating between
+// `out` and a scratch buffer so that the last launch writes `out`.
 //
 // acc_dtype bf16 follows the reference exactly: temperature, power and the
-// five constants rounded to bf16 at each launch, and every operation of the
-// sweep rounded to bf16 in the order the expression parses, each from one
-// f32 operation (__fmul_rn, __fadd_rn, __fsub_rn: nvcc contracts none into
-// an FMA), as PyTorch's and XLA's bf16 ops compute them.  acc_dtype f32 lets
-// nvcc fuse multiply-adds.
+// five constants rounded to bf16 at each launch and held as bf16, and every
+// operation of the sweep a native bf16 add, subtract or multiply (one
+// rounding each, none contracted into an FMA) in the order the expression
+// parses, which is what PyTorch's and XLA's bf16 ops compute.  acc_dtype
+// f32 lets nvcc fuse multiply-adds.
 //
-// Bound at the default shape (3248 x 3248 padded domain, 600 sweeps; H100
-// SXM data sheet): each cell update is 15 f32 operations, 600 x 3248^2 x
-// 15 = 95 GFLOP, 1.42 ms at 67 TFLOP/s; reading temp and power and writing
-// out once is 127 MB, 0.04 ms at 3.35 TB/s.  So it is bound by its
-// operations.  A launch with tt sweeps re-reads the domain (and computes
-// the halo again): small tt pays device memory, large tt and small tiles
-// pay halo work, which is the landscape the paper reports.
+// Bound at the default shape (3248 x 3248 padded domain, 600 sweeps): each
+// cell update is 9 f32 instructions, 600 x 3248^2 x 9 = 5.7e10, 1.70 ms at
+// 3.35e13 instructions/s; reading temp and power and writing out once is
+// 127 MB, 0.04 ms at 3.35 TB/s.  So it is bound by its operations.  The
+// halo is the waste: a tile computes (32 C)(ROWS WY) cells for block_h x
+// block_w outputs, and a launch re-reads the domain, so small tt pays
+// device memory, large tt and small tiles pay halo work.
+//
+// Registers are the budget: a lane holds ROWS C temperatures (and as many
+// powers), so a block of C columns may have at most HOT_MAX_THREADS(C)
+// threads (its __launch_bounds__, which caps ptxas at 65536 / that many
+// registers).  Shared memory is only the edge buffers, 2 x 2 x WY x 32 C
+// floats, under 48 KB.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// rows of a lane's register block
+#define HOT_ROWS 8
+// the most threads a block of C columns a lane may have: the register
+// budget (kernel.py MAX_THREADS mirrors it)
+#define HOT_MAX_THREADS(C) ((C) == 1 ? 768 : (C) == 2 ? 640 : (C) == 3 ? 512 : 352)
+
 namespace {
 
-constexpr int MAX_THREADS = 512;
-constexpr int MAX_UNROLL = 10;
+constexpr int R = HOT_ROWS;
+constexpr unsigned FULL = 0xffffffffu;
 
 struct Consts {
   float step, rx, ry, rz, amb;
 };
 
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
+// One bf16 operation, rounded once to nearest even (sm_90's native bf16
+// arithmetic; an explicit .rn is never contracted into an FMA).  For bf16
+// operands it gives what the f32 operation rounded to bf16 gives, as
+// PyTorch's and XLA's bf16 ops compute it: f32's 24 bits are at least
+// 2 x 8 + 2, so the double rounding is innocuous for +, - and x.
+__device__ __forceinline__ __nv_bfloat16 bop_add(__nv_bfloat16 a, __nv_bfloat16 b) {
+  unsigned short r;
+  asm("add.rn.bf16 %0, %1, %2;" : "=h"(r) : "h"(__bfloat16_as_ushort(a)), "h"(__bfloat16_as_ushort(b)));
+  return __ushort_as_bfloat16(r);
+}
+__device__ __forceinline__ __nv_bfloat16 bop_sub(__nv_bfloat16 a, __nv_bfloat16 b) {
+  unsigned short r;
+  asm("sub.rn.bf16 %0, %1, %2;" : "=h"(r) : "h"(__bfloat16_as_ushort(a)), "h"(__bfloat16_as_ushort(b)));
+  return __ushort_as_bfloat16(r);
+}
+__device__ __forceinline__ __nv_bfloat16 bop_mul(__nv_bfloat16 a, __nv_bfloat16 b) {
+  unsigned short r;
+  asm("mul.rn.bf16 %0, %1, %2;" : "=h"(r) : "h"(__bfloat16_as_ushort(a)), "h"(__bfloat16_as_ushort(b)));
+  return __ushort_as_bfloat16(r);
 }
 
-__device__ __forceinline__ int clampi(int v, int lo, int hi) { return v < lo ? lo : (v > hi ? hi : v); }
-
-// One cell's update.  In bf16 every operation is rounded, left to right as
-// the reference's expression parses; in f32 nvcc may fuse.
+// The accumulator's type: f32, or bf16 held as bf16 (acc_dtype bf16).
 template <int ACC_BF16>
-__device__ __forceinline__ float sweep_cell(float t, float p, float up, float down, float left,
-                                            float right, const Consts& k) {
-  if (ACC_BF16) {
-    const float t2 = bf16_round(__fmul_rn(2.f, t));
-    float a = bf16_round(__fadd_rn(up, down));
-    a = bf16_round(__fsub_rn(a, t2));
-    a = bf16_round(__fmul_rn(k.ry, a));
-    float s = bf16_round(__fadd_rn(p, a));
-    float b = bf16_round(__fadd_rn(left, right));
-    b = bf16_round(__fsub_rn(b, t2));
-    b = bf16_round(__fmul_rn(k.rx, b));
-    s = bf16_round(__fadd_rn(s, b));
-    float c = bf16_round(__fsub_rn(k.amb, t));
-    c = bf16_round(__fmul_rn(k.rz, c));
-    s = bf16_round(__fadd_rn(s, c));
-    s = bf16_round(__fmul_rn(k.step, s));
-    return bf16_round(__fadd_rn(t, s));
-  } else {
+struct Acc {
+  using V = float;
+  struct K {
+    float step, rx, ry, rz, amb;
+  };
+  __device__ static K consts(const Consts& c) { return {c.step, c.rx, c.ry, c.rz, c.amb}; }
+  __device__ static V from(float x) { return x; }
+  __device__ static float to(V x) { return x; }
+  // In f32 nvcc may fuse.
+  __device__ static V cell(V t, V p, V up, V down, V left, V right, const K& k) {
     return t + k.step * (p + k.ry * (up + down - 2.f * t) + k.rx * (left + right - 2.f * t) +
                          k.rz * (k.amb - t));
   }
+};
+
+template <>
+struct Acc<1> {
+  using V = __nv_bfloat16;
+  struct K {
+    V two, step, rx, ry, rz, amb;
+  };
+  __device__ static K consts(const Consts& c) {
+    return {__float2bfloat16_rn(2.f), __float2bfloat16_rn(c.step), __float2bfloat16_rn(c.rx),
+            __float2bfloat16_rn(c.ry), __float2bfloat16_rn(c.rz), __float2bfloat16_rn(c.amb)};
+  }
+  __device__ static V from(float x) { return __float2bfloat16_rn(x); }
+  __device__ static float to(V x) { return __bfloat162float(x); }
+  // Every operation rounded, left to right as the reference's expression
+  // parses.
+  __device__ static V cell(V t, V p, V up, V down, V left, V right, const K& k) {
+    const V t2 = bop_mul(k.two, t);
+    V a = bop_sub(bop_add(up, down), t2);
+    a = bop_mul(k.ry, a);
+    V s = bop_add(p, a);
+    V b = bop_sub(bop_add(left, right), t2);
+    b = bop_mul(k.rx, b);
+    s = bop_add(s, b);
+    const V c = bop_mul(k.rz, bop_sub(k.amb, t));
+    s = bop_add(s, c);
+    s = bop_mul(k.step, s);
+    return bop_add(t, s);
+  }
+};
+
+// Where a lane's cells lie: the global row of its block's first row, the
+// global column of its first column, and (EDGE only) which of its rows and
+// columns are the domain's last, whose missing neighbour is the cell itself.
+struct Place {
+  int gy, gx;
+  uint32_t last_row, last_col;  // bit r / bit j
+};
+
+// The launch's sweeps on a lane's block: load, `sweeps` sweeps, store.
+template <int C, int U, int ACC_BF16, int PSMEM, bool EDGE>
+__device__ __forceinline__ void run(const float* __restrict__ tin, const float* __restrict__ pw,
+                                    float* __restrict__ tout, int h, int w, int bh, int bw,
+                                    int by, int bx, int sweeps, const Place& pl, void* smem,
+                                    const Consts& consts) {
+  using A = Acc<ACC_BF16>;
+  using V = typename A::V;
+  const typename A::K k = A::consts(consts);
+  const int lane = threadIdx.x, wy = threadIdx.y, nwy = blockDim.y;
+  // the offset of cell (r, j) of the lane's block in the domain, clamped
+  // into it where the tile reaches past it (EDGE)
+  auto at = [&](int r, int j) {
+    const int y = EDGE ? min(pl.gy + r, h - 1) : pl.gy + r;
+    const int x = EDGE ? min(pl.gx + j, w - 1) : pl.gx + j;
+    return y * w + x;
+  };
+
+  V T[R][C];
+  V P[PSMEM ? R : 1][C];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      T[r][j] = A::from(__ldg(tin + at(r, j)));
+      if (PSMEM) P[PSMEM ? r : 0][j] = A::from(__ldg(pw + at(r, j)));
+    }
+
+  // the edge buffers: [parity][top, bottom][warp][column j][lane]
+  V* sm = static_cast<V*>(smem);
+  const int plane = nwy * 32 * C;
+  const int mine_top = wy * 32 * C + lane, mine_bot = plane + mine_top;
+  // the row above this warp's block is the bottom row of the warp above,
+  // or for the top warp its own top row (the tile's edge takes itself);
+  // likewise below
+  const int above = wy > 0 ? plane + (wy - 1) * 32 * C + lane : mine_top;
+  const int below = wy + 1 < nwy ? (wy + 1) * 32 * C + lane : mine_bot;
+
+#pragma unroll 1
+  for (int c0 = 0; c0 < sweeps; c0 += U) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      // U even keeps the parity static inside the chunk; U 1 alternates
+      V* buf = sm + ((U % 2 == 0 ? u : c0 + u) & 1) * 2 * plane;
+#pragma unroll
+      for (int j = 0; j < C; ++j) {
+        buf[mine_top + j * 32] = T[0][j];
+        buf[mine_bot + j * 32] = T[R - 1][j];
+      }
+      __syncthreads();
+      V up_row[C], down_row[C];
+#pragma unroll
+      for (int j = 0; j < C; ++j) {
+        up_row[j] = buf[above + j * 32];
+        down_row[j] = buf[below + j * 32];
+      }
+      V prev[C];  // the old values of the row above the current one
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        // the neighbours across lanes; lane 0 and 31 are the tile's edge
+        V left0 = __shfl_up_sync(FULL, T[r][C - 1], 1);
+        V rightC = __shfl_down_sync(FULL, T[r][0], 1);
+        if (lane == 0) left0 = T[r][0];
+        if (lane == 31) rightC = T[r][C - 1];
+        V nrow[C];
+#pragma unroll
+        for (int j = 0; j < C; ++j) {
+          const V t = T[r][j];
+          const V up = r == 0 ? up_row[j] : prev[j];
+          V down = r == R - 1 ? down_row[j] : T[r + 1][j];
+          const V left = j == 0 ? left0 : T[r][j - 1];
+          V right = j == C - 1 ? rightC : T[r][j + 1];
+          if (EDGE) {
+            if ((pl.last_row >> r) & 1) down = t;
+            if ((pl.last_col >> j) & 1) right = t;
+          }
+          const V p = PSMEM ? P[PSMEM ? r : 0][j] : A::from(__ldg(pw + at(r, j)));
+          nrow[j] = A::cell(t, p, up, down, left, right, k);
+        }
+#pragma unroll
+        for (int j = 0; j < C; ++j) {
+          prev[j] = T[r][j];
+          T[r][j] = nrow[j];
+        }
+      }
+    }
+  }
+
+  // the output tile's cells, inside the domain
+  const int oy0 = by * bh, oy1 = min(oy0 + bh, h);
+  const int ox0 = bx * bw, ox1 = min(ox0 + bw, w);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int gy = pl.gy + r;
+    if (gy < oy0 || gy >= oy1) continue;
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      const int gx = pl.gx + j;
+      if (gx >= ox0 && gx < ox1) tout[static_cast<size_t>(gy) * w + gx] = A::to(T[r][j]);
+    }
+  }
 }
 
-template <int U, int ACC_BF16, int PSMEM>
-__global__ void __launch_bounds__(MAX_THREADS, 1)
+template <int C, int U, int ACC_BF16, int PSMEM>
+__global__ void __launch_bounds__(HOT_MAX_THREADS(C), 1)
 hotspot_kernel(const float* __restrict__ tin, const float* __restrict__ pw,
                float* __restrict__ tout, int h, int w, int bh, int bw, int sweeps, int gh,
                int gw, int col_major, Consts k) {
-  extern __shared__ float smem[];
-  const int th = bh + 2 * sweeps, tw = bw + 2 * sweeps, cells = th * tw;
-  float* src = smem;
-  float* dst = smem + cells;
-  float* sp = smem + 2 * cells;  // th x tw, with PSMEM
-  if (ACC_BF16) {
-    k.step = bf16_round(k.step);
-    k.rx = bf16_round(k.rx);
-    k.ry = bf16_round(k.ry);
-    k.rz = bf16_round(k.rz);
-    k.amb = bf16_round(k.amb);
-  }
+  extern __shared__ float sm[];
   const int b = blockIdx.x;
   const int by = col_major ? b % gh : b / gw;
   const int bx = col_major ? b / gh : b % gw;
-  const int gy0 = by * bh - sweeps, gx0 = bx * bw - sweeps;  // the tile's (0, 0)
-
-  for (int ly = threadIdx.y; ly < th; ly += blockDim.y) {
-    const int gy = clampi(gy0 + ly, 0, h - 1);
-    for (int lx = threadIdx.x; lx < tw; lx += blockDim.x) {
-      const size_t g = static_cast<size_t>(gy) * w + clampi(gx0 + lx, 0, w - 1);
-      const float t = tin[g];
-      src[ly * tw + lx] = ACC_BF16 ? bf16_round(t) : t;
-      if (PSMEM) {
-        const float p = pw[g];
-        sp[ly * tw + lx] = ACC_BF16 ? bf16_round(p) : p;
-      }
-    }
-  }
-  __syncthreads();
-
-#pragma unroll 1
-  for (int c = 0; c < sweeps / U; ++c) {
+  const int th = R * blockDim.y, tw = 32 * C;  // the tile with its halo
+  // the tile's origin, s cells before the output tile, shifted to lie
+  // inside the domain where the domain holds it
+  const int ty = max(min(by * bh - sweeps, h - th), 0);
+  const int tx = max(min(bx * bw - sweeps, w - tw), 0);
+  Place pl;
+  pl.gy = ty + threadIdx.y * R;
+  pl.gx = tx + threadIdx.x * C;
+  pl.last_row = pl.last_col = 0;
+  if (th > h || tw > w) {
+    // a domain smaller than the tile: the tile starts at its edge and
+    // reaches past its end, whose last row and column take themselves
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      for (int ly = threadIdx.y; ly < th; ly += blockDim.y) {
-        const int gy = gy0 + ly;
-        const bool top = ly == 0 || gy <= 0, bottom = ly == th - 1 || gy >= h - 1;
-        for (int lx = threadIdx.x; lx < tw; lx += blockDim.x) {
-          const int gx = gx0 + lx, i = ly * tw + lx;
-          const float t = src[i];
-          const float up = top ? t : src[i - tw];
-          const float down = bottom ? t : src[i + tw];
-          const float left = (lx == 0 || gx <= 0) ? t : src[i - 1];
-          const float right = (lx == tw - 1 || gx >= w - 1) ? t : src[i + 1];
-          float p;
-          if (PSMEM) {
-            p = sp[i];
-          } else {
-            p = pw[static_cast<size_t>(clampi(gy, 0, h - 1)) * w + clampi(gx, 0, w - 1)];
-            if (ACC_BF16) p = bf16_round(p);
-          }
-          dst[i] = sweep_cell<ACC_BF16>(t, p, up, down, left, right, k);
-        }
-      }
-      __syncthreads();
-      float* tmp = src;
-      src = dst;
-      dst = tmp;
-    }
-  }
-
-  for (int oy = threadIdx.y; oy < bh; oy += blockDim.y) {
-    const int gy = by * bh + oy;
-    if (gy >= h) break;
-    for (int ox = threadIdx.x; ox < bw; ox += blockDim.x) {
-      const int gx = bx * bw + ox;
-      if (gx < w) tout[static_cast<size_t>(gy) * w + gx] = src[(oy + sweeps) * tw + ox + sweeps];
-    }
+    for (int r = 0; r < R; ++r) pl.last_row |= static_cast<uint32_t>(pl.gy + r >= h - 1) << r;
+#pragma unroll
+    for (int j = 0; j < C; ++j) pl.last_col |= static_cast<uint32_t>(pl.gx + j >= w - 1) << j;
+    run<C, U, ACC_BF16, PSMEM, true>(tin, pw, tout, h, w, bh, bw, by, bx, sweeps, pl, sm, k);
+  } else {
+    run<C, U, ACC_BF16, PSMEM, false>(tin, pw, tout, h, w, bh, bw, by, bx, sweeps, pl, sm, k);
   }
 }
 
-template <int U, int ACC_BF16, int PSMEM>
+int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+template <int C, int U, int ACC_BF16, int PSMEM>
 int launch_one(const float* tin, const float* pw, float* tout, int h, int w, int bh, int bw,
                int sweeps, int col_major, const Consts& k, cudaStream_t stream) {
-  auto kern = hotspot_kernel<U, ACC_BF16, PSMEM>;
-  const int th = bh + 2 * sweeps, tw = bw + 2 * sweeps;
-  const int smem = (2 + PSMEM) * th * tw * static_cast<int>(sizeof(float));
-  static int smem_set = 48 * 1024;
-  if (smem > smem_set) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    smem_set = smem;
-  }
-  const int gh = (h + bh - 1) / bh, gw = (w + bw - 1) / bw;
-  const int bdx = bw < 128 ? bw : 128;
-  const int bdy = bh < MAX_THREADS / bdx ? bh : MAX_THREADS / bdx;
-  kern<<<gh * gw, dim3(bdx, bdy), smem, stream>>>(tin, pw, tout, h, w, bh, bw, sweeps, gh, gw,
-                                                  col_major, k);
+  const int wy = cdiv(bh + 2 * sweeps, R);
+  if (32 * wy > HOT_MAX_THREADS(C)) return cudaErrorInvalidValue;
+  const int smem = 2 * 2 * wy * 32 * C * static_cast<int>(sizeof(float));  // under 48 KB
+  const int gh = cdiv(h, bh), gw = cdiv(w, bw);
+  hotspot_kernel<C, U, ACC_BF16, PSMEM><<<gh * gw, dim3(32, wy), smem, stream>>>(
+      tin, pw, tout, h, w, bh, bw, sweeps, gh, gw, col_major, k);
   return cudaGetLastError();
 }
 
-template <int U, int ACC_BF16, int PSMEM>
+template <int C, int U, int ACC_BF16, int PSMEM>
 int attributes_of(int* regs, int* local_bytes, int* max_threads) {
   cudaFuncAttributes attr;
-  const cudaError_t e = cudaFuncGetAttributes(&attr, hotspot_kernel<U, ACC_BF16, PSMEM>);
+  const cudaError_t e = cudaFuncGetAttributes(&attr, hotspot_kernel<C, U, ACC_BF16, PSMEM>);
   if (e != cudaSuccess) return e;
   *regs = attr.numRegs;
   *local_bytes = static_cast<int>(attr.localSizeBytes);
@@ -205,25 +329,31 @@ int attributes_of(int* regs, int* local_bytes, int* max_threads) {
 
 }  // namespace
 
-#define HOT_PS(X, U_, A_) X(U_, A_, 0) X(U_, A_, 1)
-#define HOT_ACC(X, U_) HOT_PS(X, U_, 0) HOT_PS(X, U_, 1)
-#define HOT_TILES(X)                                                                 \
-  HOT_ACC(X, 1) HOT_ACC(X, 2) HOT_ACC(X, 3) HOT_ACC(X, 4) HOT_ACC(X, 5) HOT_ACC(X, 6) \
-  HOT_ACC(X, 7) HOT_ACC(X, 8) HOT_ACC(X, 9) HOT_ACC(X, 10)
+// The compiled tiles: columns a lane C x unroll_t x acc_dtype x power_smem
+// (kernel.py tiles() mirrors them).  With block_w a power of two up to 128
+// and tt up to 10, block_w + 2 tt spans 1, 2, 3 or 5 warp widths (32 C),
+// never 4; at 5 columns, two sweeps unrolled spill, so only unroll_t 1.
+#define HOT_COLS 5
+#define HOT_PS(X, C_, U_, A_) X(C_, U_, A_, 0) X(C_, U_, A_, 1)
+#define HOT_ACC(X, C_, U_) HOT_PS(X, C_, U_, 0) HOT_PS(X, C_, U_, 1)
+#define HOT_UNROLL(X, C_) HOT_ACC(X, C_, 1) HOT_ACC(X, C_, 2)
+#define HOT_TILES(X) HOT_UNROLL(X, 1) HOT_UNROLL(X, 2) HOT_UNROLL(X, 3) HOT_ACC(X, 5, 1)
 
 extern "C" {
 
 // Advance `temp` n_sweeps sweeps into `out`, ceil(n_sweeps / tt) launches on
 // `stream`; scratch is a second (h, w) f32 buffer (temp is not written).
 // Returns the cudaError_t of the first launch that failed (0 on success).
-// block_h, block_w >= 1; 1 <= unroll_t <= 10, snapped down per launch to a
-// divisor of its sweep count.
+// block_h, block_w >= 1 with C = ceil((block_w + 2 tt) / 32) a compiled
+// tile's and 32 ceil((block_h + 2 tt) / HOT_ROWS) <= HOT_MAX_THREADS(C);
+// unroll_t 1 or 2 (1 at 5 columns), snapped down per launch to a divisor
+// of its sweep count.
 int hotspot_launch(const void* temp, const void* power, void* out, void* scratch, int h, int w,
                    int n_sweeps, int tt, int block_h, int block_w, int unroll_t, int acc_bf16,
                    int power_smem, int col_major, float step, float rx, float ry, float rz,
                    float amb, void* stream) {
   if (h < 1 || w < 1 || n_sweeps < 0 || tt < 1 || block_h < 1 || block_w < 1 || unroll_t < 1 ||
-      unroll_t > MAX_UNROLL)
+      unroll_t > 2 || cdiv(block_w + 2 * tt, 32) > HOT_COLS)
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* pw = static_cast<const float*>(power);
@@ -237,13 +367,14 @@ int hotspot_launch(const void* temp, const void* power, void* out, void* scratch
   int done = 0;
   for (int l = 0; l < launches; ++l) {
     const int sweeps = n_sweeps - done < tt ? n_sweeps - done : tt;
-    int u = unroll_t < sweeps ? unroll_t : sweeps;
-    while (sweeps % u) --u;
+    const int u = sweeps % unroll_t ? 1 : unroll_t;
+    const int c = cdiv(block_w + 2 * sweeps, 32);
     float* dst = bufs[(launches - 1 - l) % 2];
     int err = cudaErrorInvalidValue;
-#define HOT_DISPATCH(U_, A_, P_)                           \
-  if (u == U_ && acc_bf16 == A_ && power_smem == P_)      \
-    err = launch_one<U_, A_, P_>(src, pw, dst, h, w, block_h, block_w, sweeps, col_major, k, st);
+#define HOT_DISPATCH(C_, U_, A_, P_)                                        \
+  if (c == C_ && u == U_ && acc_bf16 == A_ && power_smem == P_)            \
+    err = launch_one<C_, U_, A_, P_>(src, pw, dst, h, w, block_h, block_w, sweeps, col_major, \
+                                     k, st);
     HOT_TILES(HOT_DISPATCH)
 #undef HOT_DISPATCH
     if (err != cudaSuccess) return err;
@@ -255,11 +386,11 @@ int hotspot_launch(const void* temp, const void* power, void* out, void* scratch
 
 // Registers, local (spill) bytes and the most threads a block may have, of
 // one compiled tile.
-int hotspot_attributes(int unroll_t, int acc_bf16, int power_smem, int* regs, int* local_bytes,
-                       int* max_threads) {
-#define HOT_ATTRS(U_, A_, P_)                                  \
-  if (unroll_t == U_ && acc_bf16 == A_ && power_smem == P_) \
-    return attributes_of<U_, A_, P_>(regs, local_bytes, max_threads);
+int hotspot_attributes(int cols, int unroll_t, int acc_bf16, int power_smem, int* regs,
+                       int* local_bytes, int* max_threads) {
+#define HOT_ATTRS(C_, U_, A_, P_)                                              \
+  if (cols == C_ && unroll_t == U_ && acc_bf16 == A_ && power_smem == P_)     \
+    return attributes_of<C_, U_, A_, P_>(regs, local_bytes, max_threads);
   HOT_TILES(HOT_ATTRS)
 #undef HOT_ATTRS
   return cudaErrorInvalidValue;

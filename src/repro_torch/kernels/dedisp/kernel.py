@@ -2,11 +2,14 @@
 version.
 
 The kernel is ``csrc/dedisp.cu`` (CUDA C++ for sm_90a: a block owns
-``block_d`` DMs x ``time_chunk`` samples, stages the delay table's slice of
-each step of ``block_c`` channels in shared memory, and each thread adds
-the samples of its DMs channel by channel, in registers, reading x through
-the L1 cache); it replaces the Pallas TPU kernel
-``repro/kernels/dedisp/kernel.py::dedisp``.  It is built with ``nvcc`` at
+``block_d`` DMs x ``time_chunk`` samples and walks them in passes; for each
+step of ``block_c`` channels thread 0 stages, by bulk copies into a ring
+of as many steps of slots as fit, completing on mbarriers, the delay
+table's slice and each channel's window of x that the block's DMs read;
+the warps take each step as it lands, each thread adding the samples of
+its ``unroll_d`` DMs channel by channel, in registers, reading a window
+once per run of equal delays among its DMs); it replaces the
+Pallas TPU kernel ``repro/kernels/dedisp/kernel.py::dedisp``.  It is built with ``nvcc`` at
 the first launch (:mod:`repro_torch._build`), one library, and bound with
 :mod:`ctypes`.
 
@@ -22,9 +25,11 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from ... import _build
+from ..common import SMEM_PER_BLOCK
 
 #: the menus the library launches (``csrc/dedisp.cu`` instantiates every
 #: (unroll_d, samples a thread) with at most ``MAX_ACC`` accumulators and
@@ -35,11 +40,11 @@ BLOCK_C = (1, 2, 4, 8, 16, 32, 64)
 TIME_CHUNK = (0, 256, 512, 1024, 2048, 4096, 8192)
 UNROLL_D = (1, 2, 4, 8)
 #: threads of a block, at most (128 registers a thread); a row of threads
-#: along time is at least a warp, so a block has at most 16 rows of DMs
+#: along time is whole warps, so a block has at most 16 rows of DMs
 MAX_THREADS, MIN_ROW = 512, 32
 #: accumulators a thread holds in registers (unroll_d x samples), and
-#: samples a thread (one DM with 32 samples spilled at 128 registers)
-MAX_ACC, MAX_SAMPLES = 32, 16
+#: samples a thread
+MAX_ACC, MAX_SAMPLES = 64, 16
 
 #: mismatching outputs allowed between the kernel and
 #: :func:`dedisp_plain` on the card: none.
@@ -60,16 +65,74 @@ def _pow2_at_least(n: int) -> int:
 def layout(block_d: int, unroll_d: int, tc: int) -> tuple[int, int, int]:
     """(threads along time, rows of DMs, samples a thread) of one block
     owning ``block_d`` DMs x ``tc`` samples; a block walks its samples in
-    passes of threads x samples."""
+    passes of threads x samples.  A row is whole warps, so that a warp
+    shares its DMs."""
     rows = block_d // unroll_d
-    nx = min(tc, MAX_THREADS // rows)
+    nx = min(-(-tc // 32) * 32, MAX_THREADS // rows)
     return nx, rows, min(_pow2_at_least(-(-tc // nx)), MAX_ACC // unroll_d,
                          MAX_SAMPLES)
 
 
+def slot_floats(nx: int, samples: int, max_delay: int) -> int:
+    """Floats of one ring slot: a pass (``nx`` x ``samples``) plus
+    ``max_delay`` (T - t_out, the widest span of delays any table the op
+    accepts can have), plus the 16-byte rounding at both ends of the
+    window, rounded up to 16 bytes (``csrc/dedisp.cu`` ``dedisp_launch``)."""
+    return (nx * samples + max_delay + 6 + 3) // 4 * 4
+
+
+#: the most steps of the ring (``MAX_STAGES``); it has as many as fit, and
+#: needs two
+MAX_STAGES = 8
+
+
+def win_bytes(c: int) -> int:
+    """Each channel's least and greatest delay: 8 B a channel, the count
+    rounded up to even."""
+    return 8 * (c + c % 2)
+
+
+def stage_bytes(block_d: int, block_c: int, slot: int) -> int:
+    """One step of the ring: ``block_c`` slots of ``slot`` floats,
+    ``block_c`` delay slices of ``block_d`` int32 and two mbarriers."""
+    return block_c * (slot + block_d) * 4 + 16
+
+
+def stages(c: int, block_d: int, block_c: int, slot: int) -> int:
+    """Steps of the ring (``ring_stages``): as many as fit in a block's
+    shared memory beside the channels' bounds, at most ``MAX_STAGES``."""
+    return min(MAX_STAGES, (SMEM_PER_BLOCK - win_bytes(c))
+               // stage_bytes(block_d, block_c, slot))
+
+
+def config_stages(cfg: dict, c: int, t_out: int, t_in: int) -> int:
+    """:func:`stages` of ``cfg`` at C = ``c``, ``t_out`` of ``t_in``
+    samples: the config fits where it is at least 2."""
+    nx, _, st = layout(cfg["block_d"], cfg["unroll_d"],
+                       cfg["time_chunk"] or t_out)
+    return stages(c, cfg["block_d"], cfg["block_c"],
+                  slot_floats(nx, st, t_in - t_out))
+
+
+def reads_per_add(delays: np.ndarray, unroll_d: int) -> float:
+    """Window reads a sample-add of the kernel makes on a (C, D) delay
+    table: a thread owns ``unroll_d`` consecutive DMs and reads, for each
+    channel, once per run of equal delays among them (once per distinct
+    delay where equal delays are adjacent, as delays grow with DM).  DMs
+    past the last of a ragged group repeat its delay, as the kernel stages
+    them."""
+    c, d = delays.shape
+    pad = -d % unroll_d
+    dl = np.concatenate([delays, np.repeat(delays[:, -1:], pad, 1)], 1) \
+        if pad else delays
+    g = dl.reshape(c, -1, unroll_d)
+    reads = 1 + (g[..., 1:] != g[..., :-1]).sum(-1)
+    return float(reads.sum()) / g.size
+
+
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.dedisp_launch.argtypes = [p, p, p, *[i] * 11, p]
+    lib.dedisp_launch.argtypes = [p, p, p, *[i] * 12, p]
     lib.dedisp_launch.restype = i
     ip = ctypes.POINTER(ctypes.c_int)
     lib.dedisp_attributes.argtypes = [i, i, i, ip, ip, ip]
@@ -117,12 +180,28 @@ def launch(x: torch.Tensor, delays: torch.Tensor, out: torch.Tensor,
     lib = library()
     c_dim, t_in = x.shape
     d_dim, t_out = out.shape
+    bd = cfg["block_d"]
+    # bulk copies move 16-byte pieces: x starts on 16 B and its last row
+    # ends on 16 B; a block's slice of a delay row, bd int32 from a multiple
+    # of bd, lies inside the row
+    if x.data_ptr() % 16 or x.numel() % 4:
+        flat = torch.empty(-(-x.numel() // 4) * 4, dtype=x.dtype,
+                           device=x.device)
+        flat[:x.numel()] = x.reshape(-1)
+        x = flat[:x.numel()].view(c_dim, t_in)
+    d_stride = -(-d_dim // bd) * bd
+    if delays.data_ptr() % 16 or d_stride != d_dim:
+        padded = torch.empty((c_dim, d_stride), dtype=delays.dtype,
+                             device=delays.device)
+        padded[:, :d_dim] = delays
+        padded[:, d_dim:] = delays[:, -1:]
+        delays = padded
     tc = cfg["time_chunk"] or t_out
-    nx, _, samples = layout(cfg["block_d"], cfg["unroll_d"], tc)
+    nx, _, samples = layout(bd, cfg["unroll_d"], tc)
     with torch.cuda.device(x.device):
         err = lib.dedisp_launch(
             x.data_ptr(), delays.data_ptr(), out.data_ptr(), c_dim, t_in,
-            d_dim, t_out, cfg["block_d"], cfg["block_c"], tc,
+            d_dim, d_stride, t_out, bd, cfg["block_c"], tc,
             cfg["unroll_d"], nx, samples, int(cfg["acc_dtype"] == "bf16"),
             torch.cuda.current_stream(x.device).cuda_stream)
     if err:

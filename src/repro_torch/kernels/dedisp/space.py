@@ -6,25 +6,27 @@ The space keeps the reference's parameters and their meanings
 
 * ``block_d`` (8 to 128): DMs per block.  The reference's 256 and 512
   cannot be admitted here (below).
-* ``block_c`` (1 to 64): channels per step; the step's slice of the delay
-  table, block_c x block_d int32 (at most 32 KB), is staged in shared
-  memory.
+* ``block_c`` (1 to 64): channels per step.  The kernel stages each
+  channel's window of x in a slot of a ring in shared memory, the slot
+  sized by the shape: a pass of samples plus T - t_out, the widest span of
+  delays any table can have.  The ring has as many steps as fit (2 to 8).
+  At the reference's shape a slot is 34 to 41 KB, so only ``block_c`` 1
+  and 2 leave room for two steps; the menu keeps the values that some
+  config fits at the shape.
 * ``time_chunk`` (0 for the whole of t_out, else 256 up to t_out): output
   samples per block, walked in passes of (threads along time) x (samples
   a thread).
-* ``unroll_d`` (1, 2, 4, 8): DMs a thread accumulates in registers; it
-  divides ``block_d``.  A block has block_d / unroll_d rows of threads, a
-  row along time at least a warp wide and the block at most 512 threads,
-  so at most 16 rows; a thread holds at most 32 accumulators (unroll_d x
-  its samples, at most 16 samples), so no compiled tile spills.
+* ``unroll_d`` (1, 2, 4, 8): DMs a thread accumulates in registers, and
+  over which it reads a window once per distinct delay; it divides
+  ``block_d``.  A block has block_d / unroll_d rows of threads, a row along
+  time whole warps and the block at most 512 threads, so at most 16 rows;
+  a thread holds at most 64 accumulators (unroll_d x its samples, at most
+  16 samples), so no compiled tile spills.
 * ``acc_dtype`` (f32, bf16), as the reference.
 
-The samples x are read through the L1 cache, not staged: one channel's
-window for a DM block is time_chunk plus the delay span of the block's
-DMs, which reaches 8192 samples at the reference's shape (55 % of its
-delays are clipped there), so the shared-memory constraint bounds only the
-delay slice, which always fits.  The reference's VMEM budget, which ruled
-out staging whole channels, has no counterpart.  Blocks mask the ragged
+The shared-memory constraint (a ring of two steps of slots beside each
+channel's delay bounds in 232 448 B, ``kernel.stages``) replaces the
+reference's VMEM budget.  Blocks mask the ragged
 ends.  The constraints admit exactly the configs the compiled library
 launches.
 """
@@ -53,29 +55,74 @@ def dims(shape: dict) -> tuple:
             shape.get("dm_step", 1.0))
 
 
-def build_space(d: int, t_out: int) -> SearchSpace:
-    """The ``dedisp_h100`` space for ``d`` DMs and ``t_out`` samples out."""
+def build_space(d: int, t_out: int, t_in: int | None = None,
+                c: int | None = None) -> SearchSpace:
+    """The ``dedisp_h100`` space for ``d`` DMs and ``t_out`` samples out of
+    ``t_in`` (default t_out + 8192, the reference's) in ``c`` channels
+    (default the reference's 1536)."""
+    t_in = t_out + MAX_DELAY if t_in is None else t_in
+    c = DedispProblem.default_shape["c"] if c is None else c
     rows = kernel.MAX_THREADS // kernel.MIN_ROW
+
+    def fits(bd, bc, tc, ud):
+        return bd % ud == 0 and bd // ud <= rows and kernel.config_stages(
+            {"block_d": bd, "block_c": bc, "time_chunk": tc, "unroll_d": ud},
+            c, t_out, t_in) >= 2
+
     # the menus trimmed to the shape: a block of more DMs than there are,
-    # or a chunk longer than t_out (0 already means all of it), is a dead
-    # row, as the reference trims its time_chunk menu
+    # a chunk longer than t_out (0 already means all of it), or a step of
+    # more channels than any block's ring holds is a dead row, as the
+    # reference trims its time_chunk menu
+    block_d = tuple(v for v in kernel.BLOCK_D if v <= d) or kernel.BLOCK_D[:1]
+    time_chunk = tuple(v for v in kernel.TIME_CHUNK if v <= t_out)
+    block_c = tuple(bc for bc in kernel.BLOCK_C
+                    if any(fits(bd, bc, tc, ud) for bd in block_d
+                           for tc in time_chunk for ud in kernel.UNROLL_D))
     params = [
-        Param("block_d", tuple(v for v in kernel.BLOCK_D if v <= d)
-              or kernel.BLOCK_D[:1]),
-        Param("block_c", kernel.BLOCK_C),
-        Param("time_chunk", tuple(v for v in kernel.TIME_CHUNK
-                                  if v <= t_out)),
+        Param("block_d", block_d),
+        Param("block_c", block_c),
+        Param("time_chunk", time_chunk),
         Param("unroll_d", kernel.UNROLL_D),
         Param("acc_dtype", ("f32", "bf16")),
     ]
+
+    def smem_ok(cfg):
+        return kernel.config_stages(cfg, c, t_out, t_in) >= 2
+
+    def smem_vec(cols):
+        return np.array([smem_ok({k: cols[k][i] for k in (
+            "block_d", "block_c", "time_chunk", "unroll_d")})
+            for i in range(len(cols["block_d"]))], dtype=bool)
+
     constraints = [
         Constraint("unroll_divides",
                    lambda c: c["block_d"] % c["unroll_d"] == 0,
                    vec=lambda c: c["block_d"] % c["unroll_d"] == 0),
         Constraint("rows", lambda c: c["block_d"] // c["unroll_d"] <= rows,
                    vec=lambda c: c["block_d"] // c["unroll_d"] <= rows),
+        Constraint("smem", smem_ok, vec=smem_vec),
     ]
     return SearchSpace(params, constraints, name="dedisp_h100")
+
+
+#: two shapes (C, D, t_out, T, DM step) at which, together, every compiled
+#: (unroll_d, samples a thread) runs: a long t_out for 16 samples a thread
+#: at unroll_d 2, a t_out of 48 for one sample at unroll_d 1
+TILE_SHAPES = ((24, 128, 2048, 2560, 0.5), (24, 64, 48, 300, 0.5))
+
+
+def tile_configs(c: int, d: int, t_out: int, t_in: int) -> dict:
+    """For each compiled (unroll_d, samples a thread) that an admitted
+    config runs at this shape, the first such config in the space's order
+    (block_c its largest where the ring holds it)."""
+    space = build_space(d, t_out, t_in, c)
+    out: dict = {}
+    for cfg in sorted(space.valid_configs(),
+                      key=lambda k: -k["block_c"]):
+        nx, _, st = kernel.layout(cfg["block_d"], cfg["unroll_d"],
+                                  cfg["time_chunk"] or t_out)
+        out.setdefault((cfg["unroll_d"], st), cfg)
+    return out
 
 
 def numpy_inputs(seed: int, c: int, d: int, t_out: int, t_in: int,
@@ -99,7 +146,8 @@ class DedispProblem(KernelProblem):
     _inputs: dict | None = None      # full-shape inputs, made at first use
 
     def build_space(self) -> SearchSpace:
-        return build_space(self.shape["d"], self.shape["t_out"])
+        c, d, t_out, t_in, _ = dims(self.shape)
+        return build_space(d, t_out, t_in, c)
 
     # -- correctness hooks ------------------------------------------------ #
     def make_inputs(self, seed: int = 0, small: bool = True,

@@ -1,10 +1,13 @@
 """The Hopper Hotspot stencil: its ctypes launcher and its plain PyTorch
 version.
 
-The kernel is ``csrc/hotspot.cu`` (CUDA C++ for sm_90a: a block stages its
-output tile's input, a halo ``tt`` deep, in shared memory and sweeps it
-there ``tt`` times; the C launcher issues the ceil(n / tt) launches of one
-call); it replaces the Pallas TPU kernel
+The kernel is ``csrc/hotspot.cu`` (CUDA C++ for sm_90a: temporal blocking
+with the tile in registers.  A block computes its output tile with a halo
+``tt`` deep in whole warps, a lane owning ``ROWS`` rows x C columns of it in
+registers across the launch's ``tt`` sweeps; only the edges of a lane's
+block move, by shuffles across lanes and through shared memory across
+warps, one barrier a sweep; the C launcher issues the ceil(n / tt)
+launches of one call); it replaces the Pallas TPU kernel
 ``repro/kernels/hotspot/kernel.py::hotspot_step``, the edge pad and halo
 gather outside it, and its driver ``hotspot``.  It is built with ``nvcc``
 at the first launch (:mod:`repro_torch._build`), one library, and bound
@@ -30,16 +33,23 @@ import torch
 from ... import _build
 from .ref import DEFAULTS, sweep
 
-#: the menus the library launches (``csrc/hotspot.cu`` instantiates every
-#: (unroll_t, acc_dtype, power_smem)); ``space.py`` admits exactly what it
+#: the menus the library launches; ``space.py`` admits exactly what it
 #: launches
-BLOCK_H = (8, 16, 32, 64, 128, 256)
-BLOCK_W = (8, 16, 32, 64, 128, 256, 512, 1024)
+BLOCK_H = (8, 16, 32, 64, 128)
+BLOCK_W = (8, 16, 32, 64, 128)
 TT = tuple(range(1, 11))
-UNROLL_T = tuple(range(1, 11))
-#: threads of a block (``csrc/hotspot.cu``): min(block_w, 128) along a row,
-#: as many rows as fit in 512, which keeps 128 registers a thread
-MAX_THREADS = 512
+#: sweeps per unrolled chunk: 2 keeps the edge buffers' parity static; at
+#: 5 columns a lane two sweeps unrolled spill, so only 1 is compiled there
+UNROLL_T = (1, 2)
+WIDE_UNROLL_T = (1,)
+#: rows of a lane's register block (``HOT_ROWS``), and the compiled columns
+#: a lane may own (``HOT_TILES``): a warp spans 32 to 160 columns, and
+#: block_w + 2 tt of the menus is never 4 warp widths
+ROWS, COLS = 8, (1, 2, 3, 5)
+#: the most threads a block of C columns a lane may have
+#: (``HOT_MAX_THREADS(C)``, the kernel's ``__launch_bounds__``): the
+#: register file (65 536) over the registers its lanes need
+MAX_THREADS = {1: 768, 2: 640, 3: 512, 5: 352}
 
 #: rel-L2 within which the kernel must follow :func:`hotspot_plain` on the
 #: card, on the whole domain after all sweeps.  With a bf16 accumulator both
@@ -54,11 +64,49 @@ VARIANTS = {"all": {}}
 _lib: ctypes.CDLL | None = None
 
 
-def smem_bytes(block_h, block_w, tt, power_smem):
-    """Dynamic shared memory of one block: two buffers of the tile with its
-    halo, and the power tile with ``power_smem`` (works on numpy columns
-    too)."""
-    return (2 + power_smem) * (block_h + 2 * tt) * (block_w + 2 * tt) * 4
+def cols(block_w, tt):
+    """Columns a lane owns: the tile with its halo, ``block_w + 2 tt``
+    wide, over the warp's 32 lanes (works on numpy columns too)."""
+    return -(-(block_w + 2 * tt) // 32)
+
+
+def warps(block_h, tt):
+    """Warps of a block, stacked: the tile with its halo, ``block_h + 2
+    tt`` tall, over ``ROWS`` rows a lane."""
+    return -(-(block_h + 2 * tt) // ROWS)
+
+
+def fits(block_h, block_w, tt):
+    """Whether the tile with its halo fits the compiled menu and the
+    register budget: C columns a lane of ``COLS`` and at most
+    ``MAX_THREADS[C]`` threads (works on numpy columns too)."""
+    c = np.minimum(cols(block_w, tt), max(COLS) + 1)
+    most = np.array([MAX_THREADS.get(k, 0) for k in range(max(COLS) + 2)])
+    return 32 * warps(block_h, tt) <= most[c]
+
+
+def compiled(block_w, tt, unroll_t):
+    """Whether a tile of these columns a lane is compiled at ``unroll_t``:
+    at 5 columns only unroll_t 1 (works on numpy columns too)."""
+    return (cols(block_w, tt) < max(COLS)) | (unroll_t == 1)
+
+
+def tiles() -> list[tuple[int, int, str, int]]:
+    """Every compiled (columns a lane, unroll_t, acc_dtype, power_smem)."""
+    return [(c, u, a, ps) for c in COLS
+            for u in (WIDE_UNROLL_T if c == max(COLS) else UNROLL_T)
+            for a in ("f32", "bf16") for ps in (0, 1)]
+
+
+def tile_configs() -> list[dict]:
+    """One admitted config for each compiled tile, in :func:`tiles`'s
+    order: tt 4 (so a run of 4k sweeps launches only that tile), block_w
+    giving its columns a lane, block_h and grid_order cycled."""
+    width = {1: 16, 2: 32, 3: 64, 5: 128}
+    return [{"block_h": BLOCK_H[i % 4], "block_w": width[c], "tt": 4,
+             "unroll_t": u, "acc_dtype": a, "power_smem": ps,
+             "grid_order": ("rm", "cm")[i % 2]}
+            for i, (c, u, a, ps) in enumerate(tiles())]
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -66,7 +114,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.hotspot_launch.argtypes = [p, p, p, p, *[i] * 10, *[f] * 5, p]
     lib.hotspot_launch.restype = i
     ip = ctypes.POINTER(ctypes.c_int)
-    lib.hotspot_attributes.argtypes = [i, i, i, ip, ip, ip]
+    lib.hotspot_attributes.argtypes = [i, i, i, i, ip, ip, ip]
     lib.hotspot_attributes.restype = i
     lib.hotspot_error_string.argtypes = [i]
     lib.hotspot_error_string.restype = ctypes.c_char_p
@@ -82,17 +130,19 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def tile_attributes(unroll_t: int, acc_dtype: str, power_smem: int) -> dict:
+def tile_attributes(c: int, unroll_t: int, acc_dtype: str,
+                    power_smem: int) -> dict:
     """Registers per thread, local (spill) bytes and the most threads a
-    block may have, of one compiled tile, from ``cudaFuncGetAttributes``."""
+    block may have, of one compiled tile (``c`` columns a lane), from
+    ``cudaFuncGetAttributes``."""
     lib = library()
     regs, local, most = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    err = lib.hotspot_attributes(unroll_t, int(acc_dtype == "bf16"),
+    err = lib.hotspot_attributes(c, unroll_t, int(acc_dtype == "bf16"),
                                  power_smem, ctypes.byref(regs),
                                  ctypes.byref(local), ctypes.byref(most))
     if err:
-        raise RuntimeError(f"no compiled hotspot tile unroll_t={unroll_t} "
-                           f"{acc_dtype} power_smem={power_smem}: "
+        raise RuntimeError(f"no compiled hotspot tile cols={c} unroll_t="
+                           f"{unroll_t} {acc_dtype} power_smem={power_smem}: "
                            f"{lib.hotspot_error_string(err).decode()}")
     return {"regs": regs.value, "local_bytes": local.value,
             "max_threads": most.value}

@@ -8,22 +8,22 @@ from __future__ import annotations
 import torch
 
 from ...device import HOPPER
-from ..common import SMEM_PER_BLOCK
 from . import kernel
 
-#: the fastest config of the sampled ``hotspot_h100`` table of 5000 configs
-#: at the default shape on an H100 (see PERF.md): 8 sweeps a launch over
-#: 64 x 64 tiles, the power tile in shared memory, f32; 11.8 % faster in
-#: that call than the best of its first 200 (tt 8 over 128 x 32 tiles).
-DEFAULT_CONFIG = {"tt": 8, "block_h": 64, "block_w": 64, "unroll_t": 8,
-                  "acc_dtype": "f32", "power_smem": 1, "grid_order": "rm"}
+#: the fastest config measured at the default shape on an H100 80GB HBM3 at
+#: 700 W (``chip_smoke.py``, PERF.md section 6): 10 sweeps a launch over
+#: 64 x 128 tiles (5 columns a lane, 11 warps), power read through L1;
+#: holding power in registers took 5 % longer there
+DEFAULT_CONFIG = {"tt": 10, "block_h": 64, "block_w": 128, "unroll_t": 1,
+                  "acc_dtype": "f32", "power_smem": 0, "grid_order": "rm"}
 
 
 def check(temp: torch.Tensor, power: torch.Tensor, n_sweeps: int,
           cfg: dict) -> None:
     """Raise ValueError unless the operands and config fit the kernel: two
     contiguous 2-D f32 tensors of one shape on one device, ``n_sweeps`` >=
-    0, and a config from the menus whose tiles fit in shared memory."""
+    0, and a config from the menus whose tile with its halo fits the
+    register budget (``kernel.fits``)."""
     for name, t in (("temp", temp), ("power", power)):
         if t.dim() != 2 or not t.is_contiguous() or t.dtype != torch.float32:
             raise ValueError(f"hotspot: {name} must be a contiguous 2-D f32 "
@@ -34,17 +34,20 @@ def check(temp: torch.Tensor, power: torch.Tensor, n_sweeps: int,
                          f"{tuple(temp.shape)} on {temp.device}")
     if n_sweeps < 0:
         raise ValueError(f"hotspot: n_sweeps {n_sweeps} < 0")
+    if temp.numel() >= 2 ** 31:
+        raise ValueError(f"hotspot: {tuple(temp.shape)} has 2^31 cells or "
+                         f"more; the kernel indexes them with 32-bit ints")
     bh, bw, tt = cfg["block_h"], cfg["block_w"], cfg["tt"]
     if bh not in kernel.BLOCK_H or bw not in kernel.BLOCK_W \
             or tt not in kernel.TT or cfg["unroll_t"] not in kernel.UNROLL_T \
             or cfg["acc_dtype"] not in ("f32", "bf16") \
             or cfg["power_smem"] not in (0, 1) \
             or cfg["grid_order"] not in ("rm", "cm") \
-            or kernel.smem_bytes(bh, bw, tt, cfg["power_smem"]) \
-            > SMEM_PER_BLOCK:
+            or not kernel.fits(bh, bw, tt) \
+            or not kernel.compiled(bw, tt, cfg["unroll_t"]):
         raise ValueError(
             f"hotspot: config {cfg} is outside the menus, or its tile with "
-            f"its halo does not fit in {SMEM_PER_BLOCK} B of shared memory")
+            f"its halo does not fit the register budget")
 
 
 def hotspot(temp: torch.Tensor, power: torch.Tensor, n_sweeps: int,

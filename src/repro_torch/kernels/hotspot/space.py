@@ -5,25 +5,34 @@ The objective is the whole simulation, ``n_total`` sweeps in ceil(n /
 tt) launches.  The space keeps the reference's parameters and their
 meanings (``csrc/hotspot.cu``), with Hopper's ranges:
 
-* ``block_h`` (8 to 256) x ``block_w`` (8 to 1024): the output tile of
-  one block, the reference's menus.  A block runs min(block_w, 128)
-  threads along a row and as many rows as fit in 512 threads.
+* ``block_h`` x ``block_w`` (8 to 128 each): the output tile of one block.
+  The block computes it with its halo in whole warps: a lane holds
+  ``kernel.ROWS`` (8) rows x C columns in registers, C = ceil((block_w +
+  2 tt) / 32) (1 to 5), and the block stacks ceil((block_h + 2 tt) / 8)
+  warps.  The reference's 256 to 1024 do not fit the register file.
 * ``tt`` (1 to 10): sweeps per launch, with a halo ``tt`` deep.
-* ``unroll_t`` (1 to 10): sweeps per unrolled chunk of the sweep loop; it
+* ``unroll_t`` (1, 2): sweeps per unrolled chunk of the sweep loop; it
   divides ``tt`` (the reference's constraint), and the last launch snaps it
-  down to a divisor of its own sweep count.
-* ``power_smem``: the power tile resident in shared memory beside the two
-  temperature buffers, or read from device memory at every sweep.  It is
-  the reference's ``keep_power_vmem``, renamed for what it means here.
+  down to a divisor of its own sweep count.  With the state in registers an
+  unrolled chunk saves only the loop and keeps the edge buffers' parity
+  static, so the reference's 3 to 10 are not compiled, and at 5 columns a
+  lane (block_w 128) two sweeps unrolled spill, so only 1 is.
+* ``power_smem``: 1 holds the power tile on chip for the whole launch, now
+  in registers beside the temperature; 0 reads it from device memory (via
+  L1) at every sweep.  It is the reference's ``keep_power_vmem``, renamed
+  for what it means here.
 * ``acc_dtype`` (f32, bf16) and ``grid_order`` (row- or column-major block
   raster), as the reference.
 
-The tile with its halo, two buffers of it and the power tile with
-``power_smem``, must fit in 227 KB of shared memory: that replaces the
-reference's VMEM budget.  The reference's ``halo_sane`` (2 tt <= block_h +
-8) is dropped: the kernel launches those tiles, at the cost of halo work.
-Blocks mask the ragged edge, so no tile needs to divide the domain.  The
-constraints admit exactly the configs the compiled library can launch.
+The budget is the register file: a block of C columns a lane may have at
+most ``kernel.MAX_THREADS[C]`` threads (the kernel's launch bound, which
+caps ptxas at 65 536 / that many registers a lane), which replaces the
+reference's VMEM budget.  Shared memory holds only each warp's edge rows,
+under 48 KB for every admitted tile.  The reference's ``halo_sane`` (2 tt
+<= block_h + 8) is dropped: the kernel launches those tiles, at the cost
+of halo work.  Blocks clamp their tiles into the domain, so no tile needs
+to divide it.  The constraints admit exactly the configs the compiled
+library can launch.
 """
 
 from __future__ import annotations
@@ -32,7 +41,7 @@ import numpy as np
 import torch
 
 from ...core.space import Config, Constraint, Param, SearchSpace
-from ..common import SMEM_PER_BLOCK, KernelProblem, inputs_from_numpy
+from ..common import KernelProblem, inputs_from_numpy
 from . import kernel, ops, ref
 
 #: the JAX package's small correctness shape (its ``make_inputs(small=True)``
@@ -52,14 +61,15 @@ def build_space() -> SearchSpace:
         Param("grid_order", ("rm", "cm")),
     ]
 
-    def smem_ok(c):
-        return kernel.smem_bytes(c["block_h"], c["block_w"], c["tt"],
-                                 c["power_smem"]) <= SMEM_PER_BLOCK
+    def registers_ok(c):
+        return kernel.fits(c["block_h"], c["block_w"], c["tt"]) \
+            & kernel.compiled(c["block_w"], c["tt"], c["unroll_t"])
 
     constraints = [
         Constraint("unroll_divides_tt", lambda c: c["tt"] % c["unroll_t"] == 0,
                    vec=lambda c: c["tt"] % c["unroll_t"] == 0),
-        Constraint("smem", lambda c: bool(smem_ok(c)), vec=smem_ok),
+        Constraint("registers", lambda c: bool(registers_ok(c)),
+                   vec=registers_ok),
     ]
     return SearchSpace(params, constraints, name="hotspot_h100")
 

@@ -23,13 +23,18 @@ from repro_torch.kernels.conv2d import ops as cops  # noqa: E402
 from repro_torch.kernels.conv2d.space import Conv2dProblem  # noqa: E402
 from repro_torch.kernels.dedisp import kernel as dkernel  # noqa: E402
 from repro_torch.kernels.dedisp import ops as dops  # noqa: E402
-from repro_torch.kernels.dedisp.space import DedispProblem  # noqa: E402
+from repro_torch.kernels.dedisp.space import (  # noqa: E402
+    TILE_SHAPES, DedispProblem, tile_configs)
+from repro_torch.kernels.dedisp.space import \
+    numpy_inputs as dedisp_inputs  # noqa: E402
 from repro_torch.kernels.expdist import kernel as ekernel  # noqa: E402
 from repro_torch.kernels.expdist import ops as eops  # noqa: E402
 from repro_torch.kernels.expdist.space import ExpdistProblem  # noqa: E402
 from repro_torch.kernels.hotspot import kernel as hkernel  # noqa: E402
 from repro_torch.kernels.hotspot import ops as hops  # noqa: E402
 from repro_torch.kernels.hotspot.space import HotspotProblem  # noqa: E402
+from repro_torch.kernels.hotspot.space import \
+    numpy_inputs as hotspot_inputs  # noqa: E402
 from repro_torch.kernels.matmul import kernel, ops  # noqa: E402
 from repro_torch.kernels.nbody import kernel as nkernel  # noqa: E402
 from repro_torch.kernels.nbody import ops as nops  # noqa: E402
@@ -316,6 +321,62 @@ def test_hotspot_kernel_matches_plain_version(hopper):
             assert rel_l2(got, want) <= hkernel.PLAIN_TOL, cfg
         assert rel_l2(prob.run_kernel(cfg, x), prob.run_reference(cfg, x)) \
             <= tolerance(prob.name, cfg)
+
+
+def test_every_compiled_hotspot_tile_matches_plain_version(hopper):
+    """Each compiled (columns a lane, unroll_t, acc_dtype, power_smem), 12
+    sweeps in launches of 4, over the whole domain: on 224 x 324, where
+    tiles are shifted into the domain at its edges, and on 30 x 30, smaller
+    than any tile (the EDGE path).  Exactly in bf16 (and off the f32
+    plain version), within ``PLAIN_TOL`` in f32."""
+    for h, w in ((200, 300), (6, 6)):
+        x = inputs_from_numpy(hotspot_inputs(1, h, w, 12), "cuda",
+                              dtype=torch.float32)
+        temp, power, n = x["temp"], x["power"], x["n_sweeps"]
+        for cfg in hkernel.tile_configs():
+            issued = hops.hotspot.device_launches
+            got = hops.hotspot(temp, power, n, cfg)
+            want = hkernel.hotspot_plain(temp, power, n, **cfg)
+            torch.cuda.synchronize()
+            assert hops.hotspot.device_launches == issued + 3
+            if cfg["acc_dtype"] == "bf16":
+                assert int((got != want).sum()) == 0, (h, w, cfg)
+                f32 = hkernel.hotspot_plain(temp, power, n,
+                                            **dict(cfg, acc_dtype="f32"))
+                assert int((got != f32).sum()) > 0, (h, w, cfg)
+            else:
+                assert rel_l2(got, want) <= hkernel.PLAIN_TOL, (h, w, cfg)
+
+
+def test_every_compiled_dedisp_tile_matches_plain_version(hopper):
+    """Each compiled (unroll_d, samples a thread) in both acc_dtypes, at
+    the two shapes that reach them all, exactly, on three delay tables: the
+    problem's, one where every DM of a channel shares one delay (a read
+    serves all of a thread's DMs) and one where all differ (a read each)."""
+    seen = set()
+    for c, d, t_out, t_in, step in TILE_SHAPES:
+        x = inputs_from_numpy(dedisp_inputs(2, c, d, t_out, t_in, step),
+                              "cuda", dtype=torch.float32)
+        span = t_in - t_out
+        tables = {
+            "real": x["delays"],
+            "equal": torch.full_like(x["delays"], span // 3),
+            "distinct": (torch.arange(d, device="cuda", dtype=torch.int32)
+                         % (span + 1)).expand(c, d).contiguous()}
+        for tile, cfg in tile_configs(c, d, t_out, t_in).items():
+            seen.add(tile)
+            for acc in ("f32", "bf16"):
+                run = dict(cfg, acc_dtype=acc)
+                for name, dl in tables.items():
+                    got = dops.dedisp(x["x"], dl, t_out, run)
+                    want = dkernel.dedisp_plain(x["x"], dl, t_out, **run)
+                    torch.cuda.synchronize()
+                    assert int((got != want).sum()) == 0, (name, run)
+                    if acc == "bf16":
+                        f32 = dkernel.dedisp_plain(
+                            x["x"], dl, t_out, **dict(run, acc_dtype="f32"))
+                        assert int((got != f32).sum()) > 0, (name, run)
+    assert seen == set(dkernel.tiles())
 
 
 def test_expdist_kernel_matches_plain_version(hopper):

@@ -46,7 +46,8 @@ from repro_torch.core import space as tspace  # noqa: E402
 from repro_torch.kernels.dedisp import kernel, ops  # noqa: E402
 from repro_torch.kernels.dedisp.ref import dedisp_reference, make_delays  # noqa: E402
 from repro_torch.kernels.dedisp.space import (  # noqa: E402
-    SMALL_SHAPE, DedispProblem, build_space, dims, numpy_inputs)
+    SMALL_SHAPE, TILE_SHAPES, DedispProblem, build_space, dims, numpy_inputs,
+    tile_configs)
 
 TOLS = {"f32": 1e-3, "bf16": 2e-2}     # tests/test_kernels.py TOLS["dedisp"]
 ORACLE_TOL = 1e-6
@@ -167,17 +168,85 @@ def test_plain_version_matches_pallas_kernel(shape, cfg):
 
 
 def test_layout_fits_every_admitted_config():
-    """A block's threads, samples a thread and passes: at most 512 threads,
-    a row at least a warp, a compiled (unroll_d, samples) tile."""
+    """A block's threads, samples a thread and passes: at most 512 adding
+    threads, a row whole warps (so a warp shares its DMs), a compiled
+    (unroll_d, samples) tile, and a ring of at least two steps."""
     prob = DedispProblem(device="cpu")
-    t_out = prob.shape["t_out"]
+    c, _, t_out, t_in, _ = dims(prob.shape)
     for cfg in prob.space.compiled().valid_configs():
         tc = cfg["time_chunk"] or t_out
         nx, rows, st = kernel.layout(cfg["block_d"], cfg["unroll_d"], tc)
         assert nx * rows <= kernel.MAX_THREADS and nx >= kernel.MIN_ROW
+        assert nx % 32 == 0
         assert (cfg["unroll_d"], st) in kernel.tiles()
-    assert kernel.layout(8, 8, 4096) == (512, 1, 4)
-    assert kernel.layout(128, 8, 256) == (32, 16, 4)
+        assert kernel.config_stages(cfg, c, t_out, t_in) >= 2
+    assert kernel.layout(8, 8, 4096) == (512, 1, 8)
+    assert kernel.layout(128, 8, 256) == (32, 16, 8)
+    # a row of whole warps: 160 samples take 5 warps, 100 take 4
+    assert kernel.layout(8, 8, 160)[0] == 160
+    assert kernel.layout(8, 8, 100)[0] == 128
+
+
+def test_ring_bytes_by_hand():
+    """The ring the space charges, counted by hand at the reference's shape
+    (T - t_out = 8192): a slot is a pass plus 8192 plus the 16-byte
+    rounding at both ends of a window; a step is block_c slots, block_c
+    delay slices and two 8-byte mbarriers; the ring has as many steps as
+    fit beside 8 B a channel of delay bounds, at most 8."""
+    # block_d 8, unroll_d 8: one row of 512 threads, 8 samples each
+    assert kernel.slot_floats(512, 8, 8192) == 4096 + 8192 + 8 == 12296
+    assert kernel.stage_bytes(8, 2, 12296) == 2 * (12296 + 8) * 4 + 16
+    assert kernel.win_bytes(1536) == 12288 and kernel.win_bytes(7) == 64
+    assert kernel.stages(1536, 8, 2, 12296) == (232448 - 12288) // 98448 == 2
+    assert kernel.stages(1536, 8, 1, 12296) == 4
+    assert kernel.stages(1536, 8, 4, 12296) == 1         # refused
+    # the default: 2 rows of 256 threads, 16 samples of 4 DMs each (64
+    # accumulators), a pass of 4096
+    cfg = ops.DEFAULT_CONFIG
+    assert kernel.layout(cfg["block_d"], cfg["unroll_d"], 4096) \
+        == (256, 2, 16)
+    assert kernel.config_stages(cfg, 1536, 4096, 12288) == 2
+    assert kernel.stages(12, 8, 64, kernel.slot_floats(160, 1, 256)) == 2
+
+
+def test_reads_per_add_on_the_reference_table():
+    """Window reads a sample-add of the kernel: once per run of equal
+    delays among a thread's ``unroll_d`` DMs.  The reference's table (the
+    JAX package's, 1536 x 2048, clipped at 8192) grows with DM, so a run
+    is a distinct delay: 0.4936 reads at unroll_d 8, where 55 % of the
+    delays sit at the clip."""
+    c, d, *_ = dims(DedispProblem.default_shape)
+    table = np.minimum(np.asarray(jnp_delays(c, d)), 8192)
+    assert (np.diff(table, axis=1) >= 0).all()
+    assert round(kernel.reads_per_add(table, 8), 4) == 0.4936
+    got = [round(kernel.reads_per_add(table, u), 4) for u in (1, 2, 4)]
+    assert got == [1.0, 0.7107, 0.5659]
+    # distinct delays, counted apart: the same where runs are distinct
+    g = np.sort(table.reshape(c, -1, 8), axis=-1)
+    distinct = (1 + (g[..., 1:] != g[..., :-1]).sum(-1)).sum() / table.size
+    assert kernel.reads_per_add(table, 8) == distinct
+    # a table out of order reads once per run, more than once per distinct
+    shuffled = np.random.default_rng(0).permuted(table, axis=1)
+    assert kernel.reads_per_add(shuffled, 8) > distinct
+    # every DM one delay: one read serves 8; all distinct: one read each
+    assert kernel.reads_per_add(np.zeros((4, 16), np.int32), 8) == 1 / 8
+    assert kernel.reads_per_add(
+        np.tile(np.arange(16, dtype=np.int32), (4, 1)), 8) == 1.0
+    # a ragged last group repeats its last delay, as the kernel stages it
+    assert kernel.reads_per_add(np.arange(12, dtype=np.int32)[None], 8) \
+        == 12 / 16
+
+
+def test_tile_shapes_reach_every_compiled_tile():
+    """The two shapes the card tests and ``chip_smoke.py`` use reach every
+    compiled (unroll_d, samples a thread), each by an admitted config."""
+    seen = {}
+    for c, d, t_out, t_in, _ in TILE_SHAPES:
+        sp = build_space(d, t_out, t_in, c)
+        for tile, cfg in tile_configs(c, d, t_out, t_in).items():
+            assert sp.satisfies(cfg)
+            seen[tile] = cfg
+    assert set(seen) == set(kernel.tiles())
 
 
 def rebuild(space, mod):
@@ -190,7 +259,8 @@ def rebuild(space, mod):
 @pytest.mark.parametrize("shape", [DedispProblem.default_shape, SMALL_SHAPE],
                          ids=["full", "small"])
 def test_space_compiles_and_audits_clean(shape):
-    sp = build_space(shape["d"], shape["t_out"])
+    c, d, t_out, t_in, _ = dims(shape)
+    sp = build_space(d, t_out, t_in, c)
     rep = audit_space(rebuild(sp, jspace))
     checks = {f.check for f in rep.findings}
     assert rep.ok, rep.render()
@@ -201,7 +271,6 @@ def test_space_compiles_and_audits_clean(shape):
         name=sp.name + "_scalar")
     assert np.array_equal(sp.compiled().mask, scalar_only.compiled().mask)
     # every admitted config fits the kernel's launch check
-    c, d, t_out, t_in, _ = dims(shape)
     x = torch.empty((c, t_in))
     delays = torch.zeros((c, d), dtype=torch.int32)
     for cfg in sp.compiled().valid_configs():
@@ -209,12 +278,18 @@ def test_space_compiles_and_audits_clean(shape):
 
 
 def test_space_sizes():
-    """1176 of 1680 configs at the default shape: unroll_d dividing block_d
-    and at most 16 rows of DMs a block."""
+    """336 of 480 configs at the default shape: unroll_d dividing block_d,
+    at most 16 rows of DMs a block, and a ring of two steps of 34 to 41 KB
+    slots (a pass plus T - t_out = 8192 samples) in 227 KB, which leaves
+    block_c 1 and 2 of the menu.  (The design that read x through L1 had
+    1176 of 1680: every block_c to 64.)  102 of 112 at the small shape."""
     prob = DedispProblem(device="cpu")
     assert (prob.space.cardinality, prob.space.compiled().n_valid) \
-        == (1680, 1176)
+        == (480, 336)
+    assert prob.space.param("block_c").values == (1, 2)
     assert prob.space.satisfies(ops.DEFAULT_CONFIG)
+    small = DedispProblem(shape=SMALL_SHAPE, device="cpu").space
+    assert (small.cardinality, small.compiled().n_valid) == (112, 102)
 
 
 def test_problem_inputs_keep_the_delays_integral():
@@ -249,11 +324,15 @@ def _bad(case):
         return x, delays, t_out, dict(cfg, block_d=8, unroll_d=16)
     if case == "rows":
         return x, delays, t_out, dict(cfg, block_d=128, unroll_d=1)
+    if case == "ring":
+        # T - t_out of 30 000: two slots of a step outgrow 227 KB
+        wide = torch.zeros((x.shape[0], t_out + 30000))
+        return wide, delays, t_out, dict(cfg, block_c=1)
     return x, delays, t_out, dict(cfg, block_c=3)               # "menu"
 
 
 @pytest.mark.parametrize("case", ["dtype", "channels", "t_out", "unroll",
-                                  "rows", "menu"])
+                                  "rows", "ring", "menu"])
 def test_dispatch_raises_on_what_the_kernel_cannot_take(case):
     x, delays, t_out, cfg = _bad(case)
     with pytest.raises(ValueError):

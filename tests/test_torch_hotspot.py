@@ -178,19 +178,95 @@ def test_space_compiles_and_audits_clean():
 
 
 def test_space_sizes():
-    """7652 of 38 400 configs: unroll_t dividing tt, and the tile with its
-    halo (two buffers, and power with power_smem) in 227 KB."""
+    """2600 of 4000 configs: unroll_t dividing tt, and the tile with its
+    halo on a compiled number of columns a lane (unroll_t 1 at 5) and
+    within its threads' register budget.  (The shared-memory design had
+    38 400 and 7652: block_w and block_h to 1024 and 256, unroll_t to 10.)"""
     prob = HotspotProblem(device="cpu")
     assert (prob.space.cardinality, prob.space.compiled().n_valid) \
-        == (38400, 7652)
+        == (4000, 2600)
     assert prob.space.satisfies(ops.DEFAULT_CONFIG)
     assert prob.shape == {"h": 2048, "w": 2048, "n_total": 600}
+
+
+def test_register_and_shared_memory_budget_by_hand():
+    """What the space charges a tile, counted by hand: a lane holds 8 rows
+    x C columns of temperature (and of power with power_smem) besides 4 C
+    edge and row values and about 24 more registers, within the file's
+    65 536 over the threads its columns allow (ptxas's cap, in steps of
+    8); shared memory is the two parities of each warp's top and bottom
+    rows, 32 C floats each, under the 48 KB that needs no opt-in."""
+    assert kernel.ROWS == 8 and kernel.COLS == (1, 2, 3, 5)
+    budget = {c: 65536 // kernel.MAX_THREADS[c] // 8 * 8 for c in kernel.COLS}
+    assert budget == {1: 80, 2: 96, 3: 128, 5: 184}
+    for c in kernel.COLS:
+        for ps in (0, 1):
+            assert 8 * c * (1 + ps) + 4 * c + 24 <= budget[c]
+    # 64 x 128 at tt 10: 148 columns on 5 a lane, 84 rows on 11 warps
+    assert (kernel.cols(128, 10), kernel.warps(64, 10)) == (5, 11)
+    assert kernel.fits(64, 128, 10) and not kernel.fits(64, 128, 13)
+    worst = max(2 * 2 * kernel.warps(c["block_h"], c["tt"]) * 32
+                * kernel.cols(c["block_w"], c["tt"]) * 4
+                for c in build_space().compiled().valid_configs())
+    assert worst == 2 * 2 * 11 * 32 * 5 * 4 <= 48 * 1024
+
+
+def _hot_source():
+    from pathlib import Path
+    return (Path(kernel.__file__).parents[2] / "csrc"
+            / kernel.SOURCE).read_text()
+
+
+def test_compiled_menu_mirrors_the_source():
+    """``kernel.ROWS``, ``MAX_THREADS`` and ``tiles()`` are what
+    ``csrc/hotspot.cu`` compiles: its HOT_ROWS, HOT_MAX_THREADS and the
+    (columns, unroll_t, acc, power_smem) that HOT_TILES instantiates."""
+    import re
+    src = _hot_source()
+    assert int(re.search(r"#define HOT_ROWS (\d+)", src).group(1)) \
+        == kernel.ROWS
+    expr = re.search(r"#define HOT_MAX_THREADS\(C\) (.+)", src).group(1)
+    pairs = re.findall(r"\(C\) == (\d+) \? (\d+)", expr)
+    last = int(re.search(r": (\d+)\)\s*$", expr).group(1))
+    most = {int(c): int(n) for c, n in pairs}
+    most.update({c: last for c in kernel.COLS if c not in most})
+    assert most == kernel.MAX_THREADS
+    body = re.search(r"#define HOT_TILES\(X\) (.+)", src).group(1)
+    both_u = [int(c) for c in re.findall(r"HOT_UNROLL\(X, (\d+)\)", body)]
+    one_u = [int(c) for c in re.findall(r"HOT_ACC\(X, (\d+), 1\)", body)]
+    compiled = {(c, u, a, ps) for c in both_u for u in (1, 2)
+                for a in ("f32", "bf16") for ps in (0, 1)} \
+        | {(c, 1, a, ps) for c in one_u for a in ("f32", "bf16")
+           for ps in (0, 1)}
+    assert compiled == set(kernel.tiles())
+    assert len(kernel.tiles()) == 28
+
+
+def test_every_admitted_config_is_compiled():
+    """Each launch of an admitted config runs a compiled tile within its
+    threads' budget: every sweep count a launch can have (tt, or fewer for
+    the last), with unroll_t snapped as the launcher snaps it."""
+    tiles = set(kernel.tiles())
+    for cfg in build_space().compiled().valid_configs():
+        for s in range(1, cfg["tt"] + 1):
+            c = kernel.cols(cfg["block_w"], s)
+            u = 1 if s % cfg["unroll_t"] else cfg["unroll_t"]
+            assert (c, u, cfg["acc_dtype"], cfg["power_smem"]) in tiles, cfg
+            assert 32 * kernel.warps(cfg["block_h"], s) \
+                <= kernel.MAX_THREADS[c]
+    assert kernel.tile_configs()[0]["tt"] == 4
+    assert [(kernel.cols(c["block_w"], c["tt"]), c["unroll_t"],
+             c["acc_dtype"], c["power_smem"]) for c in kernel.tile_configs()] \
+        == kernel.tiles()
 
 
 def test_cpu_dispatch_runs_the_plain_version_and_launches_nothing():
     t, _ = both(3, *SMALL)
     before = (ops.hotspot.launches, ops.hotspot.device_launches)
+    # the first four cases with one sweep per unrolled chunk, which the
+    # space admits
     for _, cfg in PALLAS_CASES[:4]:
+        cfg = dict(cfg, unroll_t=1)
         got = ops.hotspot(t["temp"], t["power"], 4, cfg)
         assert torch.equal(got, kernel.hotspot_plain(t["temp"], t["power"],
                                                      4, **cfg))
@@ -210,7 +286,9 @@ def _bad(case):
     if case == "sweeps":
         return temp, power, -1, cfg
     if case == "smem":
-        return temp, power, 4, dict(cfg, block_h=256, block_w=256)
+        # the budget is registers now: 128 x 128 tiles at tt 8 take 5
+        # columns a lane and 18 warps, over the 352 threads 5 columns allow
+        return temp, power, 4, dict(cfg, block_h=128, block_w=128, tt=8)
     return temp, power, 4, dict(cfg, block_w=48)               # "menu"
 
 

@@ -226,11 +226,12 @@ def test_landscape_samples_a_sampled_problem_on_the_host(tmp_path, capsys):
 def test_landscape_measures_a_small_sampled_space_whole():
     """A sampled problem whose space admits no more than ``samples``
     configs is measured whole, and its table is exhaustive: dedisp_h100 at
-    its small shape admits 112."""
+    its small shape admits 102 (of 112: a ring of two steps of 64
+    channels' slots does not fit every pass)."""
     out = landscape.main(problem="dedisp_h100", device="cpu", small=True)
     prob, table = out["problem"], out["table"]
     n = prob.space.compiled().n_valid
-    assert n == 112 and table.protocol == "exhaustive" and len(table) == n
+    assert n == 102 and table.protocol == "exhaustive" and len(table) == n
     assert out["invalid"] == 0
     assert out["table8"]["exact"] is True
     assert out["table8"]["valid"]["cpu"] == n

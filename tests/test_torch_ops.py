@@ -178,18 +178,18 @@ def _expdist(ka, kb):
 
 def _dedisp(c, d, t_out, t_in, dm_step):
     t, j = both(dedisp_inputs(1, c, d, t_out, t_in, dm_step), bf16=False)
-    fits = admits(dedisp_space(d, t_out), dedisp.DEFAULT_CONFIG)
-    return (dedisp, dedisp.DEFAULT_CONFIG if fits else None,
+    return (dedisp, resolved(dedisp, dedisp_space, d=d, t_out=t_out,
+                             t_in=t_in, c=c),
             dedisp.dedisp(t["x"], t["delays"], t_out),
             jdedisp.dedisp(j["x"], j["delays"], t_out))
 
 
 #: per op, a shape its default does not fit, and the JAX op takes: a config
 #: nearer the default runs (``resolved``).  hotspot's space does not depend
-#: on the shape and dedisp's keeps every default value at every shape (a
-#: block of 8 DMs where there are fewer), so their default fits every
-#: shape, and their ops run it with no resolving; their cases hold that the
-#: space admits it at a small shape (``default``).
+#: on the shape, so its default fits every shape and its op runs it with no
+#: resolving; dedisp's default (a block of 8 DMs) fits the small shapes, its
+#: ring the widest T - t_out of its cases.  Their cases hold that the space
+#: admits it at a small shape (``default``).
 OP_CASES = {
     "gemm": (lambda: _gemm((192, 64, 320)), "resolved"),
     "attention": (lambda: _attention((4, 2, 32, 96, 64)), "resolved"),
