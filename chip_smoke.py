@@ -10,9 +10,14 @@ Phases, each timed:
 2. build     — builds every kernel of the port from ``src/repro_torch/csrc``
                with nvcc, all sources and variants at once, and checks that
                no compiled tile spills, that every tile launches the
-               largest block its space admits, and that the GEMM and
+               largest block its space admits, that the GEMM and
                attention libraries' SASS issues wgmma and TMA loads and no
-               mma.sync (printing what ptxas said of wgmma and setmaxnreg).
+               mma.sync (printing what ptxas said of wgmma and setmaxnreg),
+               and that no conv2d tile's SASS touches local memory (LDL,
+               STL); it counts every conv2d tile's tap loop (FFMA or bf16
+               HMUL2 + HADD2, LDS by width, LDC, ULDC, the rest) and
+               prints the default's and the tuned tile's counts in the
+               timing phase.
 3. parity    — each kernel against its plain PyTorch version on the card, on
                configs that together take every value of every parameter at
                small shapes (GEMM 256x256x512, every compiled tile at every
@@ -21,9 +26,12 @@ Phases, each timed:
                (d, block_kv, warpgroups) at 8 q heads, 2 kv heads
                and d 64 and 128, 256 x 256 causal and full and 128 x 256;
                N-body 512 and 4096 bodies; pnpoly 1536 points and a
-               17-gon; conv2d 48 x 160 with a 5 x 5 filter and 300 x 600
-               with 15 x 15; hotspot 48 x 144 with 4 sweeps and 224 x 324
-               with 12, and every compiled tile on 224 x 324 and on 30 x 30
+               17-gon; conv2d 48 x 160 with a 5 x 5 filter, and every
+               compiled tile at filters of 5 and 15 on outputs no block
+               divides, with rows of a multiple of 4 floats and without
+               (``space.TILE_SHAPES``); hotspot 48 x 144 with 4 sweeps
+               and 224 x 324 with 12, and every compiled tile on 224 x
+               324 and on 30 x 30
                (smaller than a tile); expdist 384 x 320 and 5000 x 3000
                points; dedisp 12 channels x 24 DMs and 96 x 160, and every
                compiled tile at the two shapes that reach them all, on the
@@ -33,8 +41,8 @@ Phases, each timed:
                accumulator among them); within the JAX package's tolerance and the
                tighter ``kernel.PLAIN_TOL``, with a bf16-vs-f32 control for
                every kernel with a bf16 option.  pnpoly and dedisp (both
-               acc_dtypes) and hotspot in bf16 are held exactly (0
-               mismatching outputs; hotspot on the whole domain), and
+               acc_dtypes) and hotspot and conv2d in bf16 are held exactly
+               (0 mismatching outputs; hotspot on the whole domain), and
                pnpoly's twelve method variants must agree point for point
                at the full shape.
 4. main      — the GEMM path, ``repro_torch.quickstart.main``: random search
@@ -71,7 +79,13 @@ Phases, each timed:
                warpgroups), each with its TFLOP/s and share of the bound;
                hotspot's tuned tile at tt 1, 4 and 10 and power_smem 0
                and 1; dedisp's tuned config on a table where a channel's
-               DMs share one delay, one where all differ, and the real one.
+               DMs share one delay, one where all differ, and the real one;
+               conv2d's tuned config with col_chunk 1, row_chunk 1, the
+               filter's other home, each unroll_fh and the other
+               accumulator (each the admitted config nearest to it), and
+               the times in its whole table of the configs nearest to the
+               27 that formed the earlier design's 13.6 ms cliff, beside
+               the table's worst over its median.
                No single PyTorch call computes nbody, pnpoly, hotspot
                (600 dependent sweeps), expdist or dedisp (each several
                ops), so their ``library_ms`` is null.
@@ -80,8 +94,9 @@ Prints the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  A kernel's ``launches`` counts its wrapper's calls on its path;
 ``device_launches`` counts the CUDA kernels those calls issued (hotspot
 ceil(600 / tt) a call, expdist two, conv2d two where a bf16 filter is first
-rounded, the others one).  Any failure exits non-zero without the ``ok`` line, as does a host
-with no CUDA device or a directory without the rest of the repository.
+packed for constant memory, the others one).  Any failure exits non-zero
+without the ``ok`` line, as does a host with no CUDA device or a directory
+without the rest of the repository.
 """
 
 from __future__ import annotations
@@ -112,6 +127,15 @@ PEAK_SFU = 16 * 132 * 1.98e9
 #: design's configs cost about 0.2 s each to measure (seven calls of 8 to
 #: 70 ms), so it takes the 1000 that expdist takes (PERF.md section 4)
 HOTSPOT_SAMPLES = 1000
+#: the 27 configs (acc_dtype, row_chunk, block_h, block_w) that formed the
+#: conv2d cliff of the design before register blocking, 13.2-13.7 ms, each
+#: with unroll_fh 1, unroll_fw 15 and the filter in constant memory: every
+#: block of 32 to 128 threads at row_chunk 1 (both acc_dtypes) and 2 (f32)
+#: (PERF.md section 6)
+CONV2D_CLIFF = tuple(
+    (acc, rc, bh, bw) for acc, rcs in (("f32", (1, 2)), ("bf16", (1,)))
+    for rc in rcs for bh in (1, 2, 4, 8, 16) for bw in (16, 32, 64, 128)
+    if bh % rc == 0 and 32 <= bw * bh // rc <= 128)
 
 
 @contextmanager
@@ -168,18 +192,23 @@ def bound(flops: float, f32_inst: float, nbytes: float,
     return max(ops_s, bytes_s), "operations" if ops_s >= bytes_s else "bytes"
 
 
+def cuobjdump_sass(lib) -> str:
+    """A library's SASS, as ``cuobjdump -sass`` prints it."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    return subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=600, check=True).stdout
+
+
 def sass_check(name: str, built, failures: list[str]) -> dict:
     """Count a tensor-core kernel's libraries' tensor-core and TMA
     instructions in their SASS (``cuobjdump``): each must issue wgmma
     (HGMMA) and TMA loads (UTMALDG), and none the older mma.sync (HMMA).
     Also print what ptxas said about wgmma or setmaxnreg in each build
     log."""
-    import shutil
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = {}
     for variant, lib in built.libs.items():
-        sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
-                              text=True, timeout=300, check=True).stdout
+        sass = cuobjdump_sass(lib)
         ops_ = re.findall(r"\b(HGMMA|HMMA|UTMALDG)\b", sass)
         n = {op: ops_.count(op) for op in ("HGMMA", "HMMA", "UTMALDG")}
         log = (lib.parent / f"{variant}.log").read_text()
@@ -192,6 +221,60 @@ def sass_check(name: str, built, failures: list[str]) -> dict:
             failures.append(f"{name} {variant}: expected wgmma and TMA and "
                             f"no mma.sync in its SASS, counted {n}")
         out[variant] = dict(n, ptxas=notes)
+    return out
+
+
+def sass_functions(lib) -> dict[str, list[str]]:
+    """Each function of a library's SASS: its mangled name and its
+    instructions' opcodes, in order."""
+    out = {}
+    for fn in re.split(r"\n\s*Function : ", cuobjdump_sass(lib))[1:]:
+        name = fn.split("\n", 1)[0].strip()
+        out[name] = re.findall(
+            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", fn)
+    return out
+
+
+def conv2d_sass(built, failures: list[str]) -> dict:
+    """Counts of every compiled conv2d tile's SASS, keyed (f, unroll_fh,
+    acc_dtype, row_chunk, col_chunk, unroll_fw, filter_smem): over the tap
+    loop (from the last barrier to the first store) the tap instructions
+    (FFMA, or bf16 HMUL2 and HADD2), shared loads by width, constant loads
+    (LDC, ULDC), local memory (LDL, STL) and all others, and the kernel's
+    whole size.  Any LDL or STL fails the run."""
+    out = {}
+    for variant, lib in built.libs.items():
+        f, u, acc = variant[1:].split("_")[:3]
+        for name, ops_ in sass_functions(lib).items():
+            m = re.search(r"conv_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E",
+                          name)
+            if not m:
+                continue
+            rc, cc, ufw, fs = map(int, m.groups())
+            bar = max((i for i, o in enumerate(ops_) if o.startswith("BAR")),
+                      default=0)
+            end = next((i for i, o in enumerate(ops_)
+                        if i > bar and o.startswith("STG")), len(ops_))
+            loop = ops_[bar + 1:end]
+            base = [o.split(".")[0] for o in loop]
+            taps = sum(o == "FFMA" or (o.startswith(("HMUL2", "HADD2"))
+                                       and ".MMA" not in o) for o in loop)
+            lds = {w: sum(o == f"LDS{w}" for o in loop)
+                   for w in ("", ".64", ".128")}
+            n = {"taps": taps, "lds32": lds[""], "lds64": lds[".64"],
+                 "lds128": lds[".128"],
+                 "ldc": sum(b == "LDC" for b in base),
+                 "uldc": sum(b == "ULDC" for b in base),
+                 "local": sum(b in ("LDL", "STL") for b in ops_),
+                 "loop": len(loop), "bytes": 16 * len(ops_)}
+            n["other"] = n["loop"] - taps - sum(lds.values()) - n["ldc"] \
+                - n["uldc"]
+            n["other_per_tap"] = (n["loop"] - taps) / max(taps, 1)
+            key = (int(f), int(u[1:]), acc, rc, cc, ufw, fs)
+            out[key] = n
+            if n["local"]:
+                failures.append(f"conv2d tile {key} uses local memory "
+                                f"(LDL/STL) in its SASS")
     return out
 
 
@@ -282,7 +365,7 @@ def main(argv=None) -> int:
     from repro_torch import _build, landscape, quickstart
     from repro_torch import device as devmod
     from repro_torch.core.problem import L2_FLUSH_BYTES, cuda_event_seconds
-    from repro_torch.kernels.common import admits
+    from repro_torch.kernels.common import admits, fitting_config
     from repro_torch.kernels.attention import kernel as fkernel
     from repro_torch.kernels.attention import ops as fops
     from repro_torch.kernels.attention.space import (AttentionProblem,
@@ -290,7 +373,12 @@ def main(argv=None) -> int:
                                                      numpy_inputs)
     from repro_torch.kernels.conv2d import kernel as ckernel
     from repro_torch.kernels.conv2d import ops as cops
+    from repro_torch.kernels.conv2d.space import TILE_SHAPES as \
+        CONV2D_TILE_SHAPES
     from repro_torch.kernels.conv2d.space import Conv2dProblem
+    from repro_torch.kernels.conv2d.space import numpy_inputs as conv2d_inputs
+    from repro_torch.kernels.conv2d.space import \
+        tile_configs as conv2d_tile_configs
     from repro_torch.kernels.dedisp import kernel as dkernel
     from repro_torch.kernels.dedisp import ops as dops
     from repro_torch.kernels.dedisp.space import TILE_SHAPES as DEDISP_TILE_SHAPES
@@ -372,6 +460,11 @@ def main(argv=None) -> int:
         n_nvcc = sum(len(m.VARIANTS) for m, _ in KERNELS.values())
         print(f"build: {build_s:.1f} s ({n_nvcc} nvcc processes in "
               f"parallel, {len(built)} sources)")
+        finished = sorted(((t, f"{src}[{v}]") for src, b in built.items()
+                           for v, t in b.finished.items()), reverse=True)
+        print("  the last nvcc to finish: " + ", ".join(
+            f"{name} at {t:.1f} s" for t, name in finished[:4]))
+        record["build_finished_s"] = {name: t for t, name in finished}
         tiles = {
             "gemm": {t: kernel.tile_attributes(*t) for t in sorted(
                 {(c["rhs_layout"], c["block_m"], c["block_n"], c["block_k"],
@@ -393,14 +486,14 @@ def main(argv=None) -> int:
                 for pre in (0, 1) for t in sorted(
                     {pkernel.points_per_thread(bp)
                      for bp in pkernel.BLOCK_POINTS})},
-            "conv2d": {(f, ufh, rc, ufw, a, fs): ckernel.tile_attributes(
-                f, ufh, rc, ufw, a, fs)
+            "conv2d": {(f, ufh, rc, cc, ufw, a, fs): ckernel.tile_attributes(
+                f, ufh, rc, cc, ufw, a, fs)
                 for f in ckernel.FILTER_SIZES
                 for ufh in sorted({ckernel.snap_unroll(u, f)
                                    for u in ckernel.UNROLL})
                 for ufw in sorted({ckernel.snap_unroll(u, f)
                                    for u in ckernel.UNROLL})
-                for rc in ckernel.ROW_CHUNK for a in ("f32", "bf16")
+                for rc, cc in ckernel.TILES for a in ("f32", "bf16")
                 for fs in (0, 1)},
             # every compiled tile of the three kernels of the sampled spaces
             "hotspot": {t: hkernel.tile_attributes(*t)
@@ -419,10 +512,15 @@ def main(argv=None) -> int:
             if spills:
                 failures.append(f"{name} tiles spill: {spills}")
             # the six f32 kernels' spaces admit blocks of MAX_THREADS
-            # (hotspot's per columns a lane)
+            # (hotspot's per columns a lane, conv2d's per tile)
             most = getattr(KERNELS[name][0], "MAX_THREADS", None)
-            short = [t for t, a in attrs.items() if most and a["max_threads"]
-                     < (most[t[0]] if isinstance(most, dict) else most)]
+
+            def expect(t):
+                if name == "conv2d":
+                    return int(ckernel.max_threads(t[2], t[3], t[5]))
+                return most[t[0]] if isinstance(most, dict) else most
+            short = [t for t, a in attrs.items()
+                     if most and a["max_threads"] < expect(t)]
             if short:
                 failures.append(f"{name} tiles cannot launch {most} threads: "
                                 f"{short}")
@@ -442,7 +540,33 @@ def main(argv=None) -> int:
         record["sass"] = {
             name: sass_check(name, built[KERNELS[name][0].SOURCE], failures)
             for name in ("gemm", "flash_attention")}
+        # every compiled conv2d tile's SASS: no local memory, and the tap
+        # loop's instruction counts against the shared reads it should issue
+        csass = conv2d_sass(built[ckernel.SOURCE], failures)
+        record["conv2d_sass"] = {str(k): v for k, v in csass.items()}
+        big = max(csass.items(), key=lambda kv: kv[1]["bytes"])
+        print(f"  conv2d SASS: {len(csass)} compiled tiles, "
+              f"{sum(n['local'] for n in csass.values())} LDL/STL; largest "
+              f"{big[1]['bytes']} B of code, {big[0]}")
         record["build_s"] = build_s
+
+    def conv2d_sass_line(label: str, cfg: dict) -> None:
+        """The SASS counts of ``cfg``'s tile beside the shared words a tap
+        should read (``kernel.loads_per_fma``)."""
+        f = cfull.shape["fh"]
+        key = (f, ckernel.snap_unroll(cfg["unroll_fh"], f), cfg["acc_dtype"],
+               cfg["row_chunk"], cfg["col_chunk"],
+               ckernel.snap_unroll(cfg["unroll_fw"], f), cfg["filter_smem"])
+        n = csass[key]
+        print(f"  conv2d SASS of the {label} tile {key}: tap loop {n['loop']} "
+              f"instructions, {n['taps']} taps (FFMA or bf16 HMUL2 + "
+              f"HADD2), LDS.32/64/128 {n['lds32']}/{n['lds64']}/"
+              f"{n['lds128']}, LDC {n['ldc']}, ULDC {n['uldc']}, LDL/STL "
+              f"{n['local']}, other {n['other']}; non-tap per tap "
+              f"{n['other_per_tap']:.4f}; {n['bytes']} B of code; design "
+              f"{ckernel.loads_per_fma(cfg, f):.4f} shared words an FMA")
+        record.setdefault("conv2d_sass_lines", {})[label] = dict(
+            n, key=str(key), loads_per_fma=ckernel.loads_per_fma(cfg, f))
 
     worst = {k: {"rel_l2": 0.0, "max_abs_err": 0.0, "controls": 0,
                  "calls": 0, "mismatches": 0} for k in KERNELS}
@@ -529,18 +653,20 @@ def main(argv=None) -> int:
              f"n={x['pos'].shape[1]} ")
 
     def conv2d_parity(cfg: dict, x: dict) -> None:
+        """Exactly in bf16, within ``PLAIN_TOL`` in f32."""
         image, filt = x["image"], x["filt"]
         before = cops.conv2d.launches
         got = cops.conv2d(image, filt, cfg)
         launched_once(cops.conv2d, before)
-        control = None
+        want = ckernel.conv2d_plain(image, filt, **cfg)
+        label = f"{tuple(image.shape)}*{tuple(filt.shape)} "
         if cfg["acc_dtype"] == "bf16":
-            def control():
-                return ckernel.conv2d_plain(image, filt,
-                                            **dict(cfg, acc_dtype="f32"))
-        hold("conv2d", "conv2d_h100", cfg, got,
-             ckernel.conv2d_plain(image, filt, **cfg), control,
-             f"{tuple(image.shape)}*{tuple(filt.shape)} ")
+            exact("conv2d", cfg, got, want,
+                  lambda: ckernel.conv2d_plain(image, filt,
+                                               **dict(cfg, acc_dtype="f32")),
+                  label)
+        else:
+            hold("conv2d", "conv2d_h100", cfg, got, want, None, label)
 
     def pnpoly_parity(cfg: dict, x: dict) -> torch.Tensor:
         """The kernel against its plain version, point for point: any
@@ -732,14 +858,22 @@ def main(argv=None) -> int:
                                      "level_points": int(level.sum()),
                                      "reference_m1_flips": flips}
 
-        for shape in (Conv2dProblem.small_shape,
-                      {"h": 300, "w": 600, "fh": 15, "fw": 15}):
-            prob = Conv2dProblem(shape=shape, device="cuda")
-            ccfgs = covering_configs(prob.space, 12, seed=5)
-            print(f"conv2d: {len(ccfgs)} configs at {shape}")
-            xc = prob.make_inputs(seed=3, small=False)
-            for cfg in ccfgs:
-                conv2d_parity(cfg, xc)
+        prob = Conv2dProblem(shape=Conv2dProblem.small_shape, device="cuda")
+        ccfgs = covering_configs(prob.space, 12, seed=5)
+        print(f"conv2d: {len(ccfgs)} configs at {prob.shape}")
+        xc = prob.make_inputs(seed=3, small=False)
+        for cfg in ccfgs:
+            conv2d_parity(cfg, xc)
+        # every compiled tile at both filter sizes, on shapes no block
+        # divides, one with rows of a multiple of 4 floats (cp.async
+        # staging) and one without (plain loads)
+        for shape in CONV2D_TILE_SHAPES:
+            tcfgs = conv2d_tile_configs(*shape)
+            print(f"conv2d: every compiled tile ({len(tcfgs)}) at {shape}")
+            xt = inputs_from_numpy(conv2d_inputs(2, *shape), "cuda",
+                                   dtype=torch.float32)
+            for cfg in tcfgs:
+                conv2d_parity(cfg, xt)
         xcf = cfull.make_inputs(seed=4, small=False)
         cbig = [dict(cops.DEFAULT_CONFIG)] + cfull.space.sample_distinct(2, 9)
         print(f"conv2d: {len(cbig)} configs at {cfull.shape}")
@@ -1198,6 +1332,70 @@ def main(argv=None) -> int:
                 "tuned_config": tuned.config,
                 f"{kind}_best_ms": path["table_best_s"] * 1e3,
                 "protocol": path["protocol"], "build_s": build_s})
+
+        # conv2d: the SASS counts of the default and the tuned tile; the
+        # tuned config with no column reuse (col_chunk 1), one row a thread
+        # (row_chunk 1), the filter's other home, each unroll_fh (the code
+        # size) and the other accumulator, each as the admitted config
+        # nearest to it that keeps the change
+        cbest = cpath["best"].config
+        conv2d_sass_line("default", cops.DEFAULT_CONFIG)
+        conv2d_sass_line("tuned", cbest)
+        ckeep = ("row_chunk", "col_chunk", "unroll_fh", "unroll_fw",
+                 "acc_dtype", "filter_smem")
+        csplit = {}
+        for change in ([{"col_chunk": 1}, {"row_chunk": 1},
+                        {"filter_smem": 1 - cbest["filter_smem"]}]
+                       + [{"unroll_fh": u}
+                          for u in cfull.space.param("unroll_fh").values]
+                       + [{"acc_dtype": {"f32": "bf16", "bf16": "f32"}[
+                           cbest["acc_dtype"]]}]):
+            cfg = fitting_config(cfull.space, dict(cbest, **change), ckeep)
+            label = " ".join(f"{k}={v}" for k, v in change.items())
+            if cfg is None:
+                print(f"  conv2d tuned with {label}: none admitted")
+                continue
+            t_s = cfull.evaluate(cfg).objective
+            key = (cf, ckernel.snap_unroll(cfg["unroll_fh"], cf),
+                   cfg["acc_dtype"], cfg["row_chunk"], cfg["col_chunk"],
+                   ckernel.snap_unroll(cfg["unroll_fw"], cf),
+                   cfg["filter_smem"])
+            csplit[label] = {"ms": t_s * 1e3, "config": cfg,
+                             "code_bytes": csass[key]["bytes"],
+                             "loads_per_fma": ckernel.loads_per_fma(cfg, cf)}
+            moved = {k: v for k, v in cfg.items()
+                     if v != cbest[k] and k not in change}
+            print(f"  conv2d tuned with {label}{f' {moved}' if moved else ''}"
+                  f": {t_s * 1e3:.4f} ms = {cbound_s / t_s:.1%} of the "
+                  f"bound; {csass[key]['bytes']} B of code, "
+                  f"{ckernel.loads_per_fma(cfg, cf):.4f} shared words an FMA")
+        record["conv2d_splits"] = csplit
+        # the earlier design's cliff in this one: each of its 27 configs as the
+        # admitted config nearest to it with one column a thread, its time
+        # in the exhaustive table; and the table's worst over its median
+        ctable = {tuple(sorted(c.items())): o for c, o in zip(
+            cpath["configs"], cpath["land"]["table"].objectives)}
+        cobjs = sorted(ctable.values())
+        cmed = statistics.median(cobjs)
+        cliff = {}
+        for acc, rc, bh, bw in CONV2D_CLIFF:
+            old = {"block_h": bh, "block_w": bw, "row_chunk": rc,
+                   "col_chunk": 1, "unroll_fh": 1, "unroll_fw": 15,
+                   "acc_dtype": acc, "filter_smem": 0}
+            near = fitting_config(cfull.space, old, ckeep)
+            cliff[f"{acc} rc{rc} {bh}x{bw}"] = {
+                "config": near, "ms": ctable[tuple(sorted(near.items()))]
+                * 1e3}
+        cliff_ms = [v["ms"] for v in cliff.values()]
+        distinct = len({str(v["config"]) for v in cliff.values()})
+        print(f"  conv2d: the 27 cliff configs of the earlier design, nearest "
+              f"admitted with col_chunk 1 ({distinct} distinct): "
+              f"{min(cliff_ms):.4f}..{max(cliff_ms):.4f} ms, median "
+              f"{statistics.median(cliff_ms):.4f} (13.2..13.7 in the earlier "
+              f"design); the table's median {cmed * 1e3:.4f} ms, worst "
+              f"{cobjs[-1] * 1e3:.4f} ms = {cobjs[-1] / cmed:.2f}x the median")
+        record["conv2d_cliff"] = {"configs": cliff, "median_ms": cmed * 1e3,
+                                  "worst_ms": cobjs[-1] * 1e3}
 
         # hotspot's tuned tile at tt 1, 4 and 10 and power_smem 0 and 1:
         # small tt pays device memory (each launch re-reads the domain),

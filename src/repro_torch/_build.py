@@ -21,7 +21,7 @@ import re
 import shutil
 import subprocess
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -35,6 +35,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 class Built:
     libs: dict[str, Path]       # variant name -> shared library
     seconds: float              # wall time of this build (0.0 if reused)
+    #: variant name -> seconds from the build's start to its nvcc's end
+    finished: dict[str, float] = field(default_factory=dict)
 
 
 def nvcc() -> str:
@@ -101,21 +103,27 @@ def build_all(jobs: dict[str, dict[str, dict[str, object]]]
             cmd = [compiler, *NVCC_FLAGS,
                    *(f"-D{k}={val}" for k, val in defines.items()),
                    "-o", str(tmp), str(CSRC / source)]
-            procs[source, v] = (out_dir, tmp, libs[v], subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True))
+            log = out_dir / f"{v}.log"
+            with open(log, "w") as sink:
+                procs[source, v] = (tmp, libs[v], log, subprocess.Popen(
+                    cmd, stdout=sink, stderr=subprocess.STDOUT))
     failed = []
-    for (source, v), (out_dir, tmp, lib, proc) in procs.items():
-        log, _ = proc.communicate()
-        (out_dir / f"{v}.log").write_text(log)
-        if proc.returncode != 0:
-            failed.append(f"--- {source} [{v}] exit {proc.returncode}\n"
-                          f"{log[-4000:]}")
-        else:
-            os.replace(tmp, lib)
+    while procs:
+        for (source, v), (tmp, lib, log, proc) in list(procs.items()):
+            if proc.poll() is None:
+                continue
+            del procs[source, v]
+            out[source].finished[v] = time.perf_counter() - t0
+            if proc.returncode != 0:
+                failed.append(f"--- {source} [{v}] exit {proc.returncode}\n"
+                              f"{log.read_text()[-4000:]}")
+            else:
+                os.replace(tmp, lib)
+        time.sleep(0.05)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     seconds = time.perf_counter() - t0
-    for source in {s for s, _ in procs}:
-        out[source].seconds = seconds
+    for built in out.values():
+        if built.finished:
+            built.seconds = seconds
     return out

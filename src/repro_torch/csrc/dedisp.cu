@@ -62,6 +62,7 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "common.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -70,7 +71,6 @@ using namespace hopper;
 
 constexpr int MAX_THREADS = 512;
 constexpr int MAX_SMEM = 232448;  // per block, above 48 KB by opt-in
-constexpr int MAX_DEVICES = 64;
 constexpr int MAX_STAGES = 8;
 
 __device__ __forceinline__ float bf16_round(float x) {
@@ -306,19 +306,10 @@ template <int UD, int ST, int BF16>
 int launch_tile(const float* x, const int* delays, float* out, int c_dim, int t_in, int d_dim,
                 int d_stride, int t_out, int bd, int bc, int tc, int nx, int slot, int stages,
                 cudaStream_t stream) {
-  auto kern = dedisp_kernel<UD, ST, BF16>;
+  constexpr auto kern = dedisp_kernel<UD, ST, BF16>;
   const int smem = stages * stage_bytes(bd, bc, slot) + win_bytes(c_dim);
-  // the opt-in above 48 KB is an attribute of the kernel on each device:
-  // set it once per device, to the most this process has asked there
-  static int opted[MAX_DEVICES] = {};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  const cudaError_t e = opt_in_smem<kern>(smem);
   if (e != cudaSuccess) return e;
-  if (smem > 48 * 1024 && (dev >= MAX_DEVICES || smem > opted[dev])) {
-    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    if (dev < MAX_DEVICES) opted[dev] = smem;
-  }
   const dim3 grid(cdiv(t_out, tc), cdiv(d_dim, bd));
   kern<<<grid, nx * (bd / UD), smem, stream>>>(x, delays, out, c_dim, t_in, d_dim, d_stride,
                                                     t_out, bd, bc, tc, nx, slot, stages);

@@ -39,6 +39,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int MAX_THREADS = 512;
@@ -147,15 +149,10 @@ template <int UJ, int EXP2, int BF16>
 int launch_tile(const float* a, const float* sa, const float* b, const float* sb,
                 float* partial, float* out, int ka, int kb, int bi, int bj, int njb,
                 cudaStream_t stream) {
-  auto kern = expdist_kernel<UJ, EXP2, BF16>;
+  constexpr auto kern = expdist_kernel<UJ, EXP2, BF16>;
   const int smem = (3 * bj + bi) * static_cast<int>(sizeof(float));
-  static int smem_set = 48 * 1024;
-  if (smem > smem_set) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    smem_set = smem;
-  }
+  const cudaError_t opt = opt_in_smem<kern>(smem);
+  if (opt != cudaSuccess) return opt;
   const int gi = (ka + bi - 1) / bi;
   kern<<<dim3(gi, njb), bi, smem, stream>>>(a, sa, b, sb, partial, ka, kb, bj, njb);
   cudaError_t e = cudaGetLastError();

@@ -465,17 +465,12 @@ int launch_tile(const void* q, const void* k, const void* v, void* out, int hq, 
                 int tq, int tk, int bq, int causal, int skip, int acc_bf16, float scale,
                 cudaStream_t stream) {
   using T = Tile<BKV, CW>;
-  auto kern = fa_kernel<BKV, CW>;
-  static bool smem_set = false;
-  if (!smem_set) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
-    if (e != cudaSuccess) return e;
-    smem_set = true;
-  }
+  constexpr auto kern = fa_kernel<BKV, CW>;
+  cudaError_t e = opt_in_smem<kern>(T::SMEM);
+  if (e != cudaSuccess) return e;
   // 2-D maps over (Hq * Tq, D) and (Hkv * Tk, D), read in 64-column boxes
   CUtensorMap map_q, map_k, map_v;
-  cudaError_t e = tensor_map_2d(&map_q, q, (uint64_t)hq * tq, D, bq, 64, HALF);
+  e = tensor_map_2d(&map_q, q, (uint64_t)hq * tq, D, bq, 64, HALF);
   if (e == cudaSuccess) e = tensor_map_2d(&map_k, k, (uint64_t)hkv * tk, D, BKV, 64, HALF);
   if (e == cudaSuccess) e = tensor_map_2d(&map_v, v, (uint64_t)hkv * tk, D, BKV, 64, HALF);
   if (e != cudaSuccess) return e;

@@ -230,16 +230,11 @@ int launch_tile(const void* a, const void* b, const void* c, void* out, int m, i
                 int k, int split_k, int stages, int acc_bf16, int unroll_k, int order_nm,
                 float alpha, float beta, cudaStream_t stream) {
   using T = Tile<BM, BN, WARPS / 4>;
-  auto kern = gemm_kernel<BM, BN, WARPS / 4>;
-  static bool smem_set = false;
-  if (!smem_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::smem(MAX_STAGES));
-    if (e != cudaSuccess) return e;
-    smem_set = true;
-  }
+  constexpr auto kern = gemm_kernel<BM, BN, WARPS / 4>;
+  cudaError_t e = opt_in_smem<kern>(T::smem(MAX_STAGES));
+  if (e != cudaSuccess) return e;
   CUtensorMap map_a, map_b;
-  cudaError_t e = tensor_map_2d(&map_a, a, m, k, BM, BK, K_ROW);
+  e = tensor_map_2d(&map_a, a, m, k, BM, BK, K_ROW);
   if (e == cudaSuccess)
     e = NK ? tensor_map_2d(&map_b, b, n, k, BN, BK, K_ROW)
            : tensor_map_2d(&map_b, b, k, n, BK, KN_COLS, 128);

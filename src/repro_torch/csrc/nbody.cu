@@ -33,6 +33,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr float G = 1.0f;
@@ -100,14 +102,9 @@ nbody_kernel(const float* __restrict__ pos, const float* __restrict__ mass,
 template <int UNROLL, int EXACT, int BF16>
 int launch_tile(const float* pos, const float* mass, const float4* bodies, float* out, int n,
                 int block_i, int block_j, int aos, float eps2, cudaStream_t stream) {
-  auto kern = nbody_kernel<UNROLL, EXACT, BF16>;
-  static bool smem_set = false;
-  if (!smem_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_BLOCK_J * sizeof(float4));
-    if (e != cudaSuccess) return e;
-    smem_set = true;
-  }
+  constexpr auto kern = nbody_kernel<UNROLL, EXACT, BF16>;
+  const cudaError_t e = opt_in_smem<kern>(MAX_BLOCK_J * sizeof(float4));
+  if (e != cudaSuccess) return e;
   kern<<<n / block_i, block_i, block_j * sizeof(float4), stream>>>(pos, mass, bodies, out, n,
                                                                    block_j, aos, eps2);
   return cudaGetLastError();

@@ -1,7 +1,7 @@
 """Public 2-D convolution op: the Hopper kernel for CUDA tensors, the plain
 version for CPU tensors, a count of kernel launches (``conv2d.launches``,
 one a call) and one of the CUDA kernels the calls issue
-(``conv2d.device_launches``: two where a bf16 filter is first rounded for
+(``conv2d.device_launches``: two where a bf16 filter is first packed for
 constant memory, else one).  With no config from the caller it runs
 :data:`DEFAULT_CONFIG` where that fits the shape, else the nearest config
 the space admits there (:func:`~repro_torch.kernels.common.resolve_config`);
@@ -16,13 +16,15 @@ from ...device import HOPPER
 from ..common import resolve_config
 from . import kernel
 
-#: measured over the whole ``conv2d_h100`` space at the default shape on an
-#: H100 (see PERF.md): the fastest config, 32 x 32 outputs a block, 8 rows a
-#: thread, the whole filter unrolled and in constant memory, f32.  At
-#: another filter size the unroll factors snap to its divisors.
+#: the fastest config of the whole ``conv2d_h100`` space at the default
+#: shape, as ``chip_smoke.py``'s conv2d landscape measured it on an NVIDIA
+#: H100 80GB HBM3 at 700 W (PERF.md section 6 names the run): 32 x 32
+#: outputs a block, 2 x 4 a thread, the whole filter unrolled and in
+#: constant memory, f32.  At another filter size the unroll factors snap to
+#: its divisors.
 DEFAULT_CONFIG = {"block_h": 32, "block_w": 32, "unroll_fh": 15,
-                  "unroll_fw": 15, "row_chunk": 8, "acc_dtype": "f32",
-                  "filter_smem": 0}
+                  "unroll_fw": 15, "row_chunk": 2, "col_chunk": 4,
+                  "acc_dtype": "f32", "filter_smem": 0}
 #: what a resolved config keeps of the default: its accumulator
 SEMANTIC = ("acc_dtype",)
 
@@ -46,23 +48,28 @@ def check_operands(image: torch.Tensor, filt: torch.Tensor) -> None:
 
 def check(image: torch.Tensor, filt: torch.Tensor, cfg: dict) -> None:
     """Raise ValueError unless the operands and config fit the kernel: the
-    operands as :func:`check_operands` says, and a block of 32 to 512
-    threads from the compiled menus (``row_chunk`` dividing
-    ``block_h``)."""
+    operands as :func:`check_operands` says, and a compiled tile
+    (``row_chunk`` x ``col_chunk``, dividing ``block_h`` and ``block_w``)
+    in a block of 128 threads to the tile's ``kernel.max_threads``, from the
+    compiled menus, at least ``kernel.ROW_THREADS`` of them along a
+    row."""
     check_operands(image, filt)
-    bh, bw, rc = cfg["block_h"], cfg["block_w"], cfg["row_chunk"]
+    bh, bw = cfg["block_h"], cfg["block_w"]
+    rc, cc = cfg["row_chunk"], cfg["col_chunk"]
     if bh not in kernel.BLOCK_H or bw not in kernel.BLOCK_W \
-            or rc not in kernel.ROW_CHUNK or bh % rc \
-            or not kernel.MIN_THREADS <= kernel.threads(bh, bw, rc) \
-            <= kernel.MAX_THREADS \
+            or (rc, cc) not in kernel.TILES or bh % rc or bw % cc \
+            or cfg["acc_dtype"] not in ("f32", "bf16") \
+            or not kernel.MIN_THREADS <= kernel.threads(bh, bw, rc, cc) \
+            <= kernel.max_threads(rc, cc, cfg["acc_dtype"]) \
+            or bw // cc < kernel.ROW_THREADS \
             or cfg["unroll_fh"] not in kernel.UNROLL \
             or cfg["unroll_fw"] not in kernel.UNROLL \
-            or cfg["acc_dtype"] not in ("f32", "bf16") \
             or cfg["filter_smem"] not in (0, 1):
         raise ValueError(
-            f"conv2d: config {cfg} is outside the compiled menus (row_chunk "
-            f"must divide block_h and the block have "
-            f"{kernel.MIN_THREADS}..{kernel.MAX_THREADS} threads)")
+            f"conv2d: config {cfg} is outside the compiled menus (a compiled "
+            f"row_chunk x col_chunk tile dividing the block, "
+            f"{kernel.MIN_THREADS} threads to the tile's launch bound, at "
+            f"least {kernel.ROW_THREADS} a row)")
 
 
 def conv2d(image: torch.Tensor, filt: torch.Tensor,

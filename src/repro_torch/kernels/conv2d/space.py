@@ -2,25 +2,39 @@
 evaluator.
 
 The space keeps the reference's parameters and their meanings
-(``csrc/conv2d.cu``), with Hopper's ranges:
+(``csrc/conv2d.cu``), with Hopper's ranges, and adds ``col_chunk``:
 
-* ``block_h`` (1 to 64) x ``block_w`` (16 to 256): the output tile of one
+* ``block_h`` (8 to 64) x ``block_w`` (32 to 256): the output tile of one
   block.  Its input tile, halo included, is staged in shared memory:
-  (block_h + F - 1) x (block_w + F - 1) f32, at most 84 KB at F = 15.  The
-  reference's tiles up to 256 x 4096 fit a TPU's VMEM, not 227 KB of
-  shared memory.
-* ``row_chunk`` (1, 2, 4, 8): output rows a thread computes, so a block
-  runs block_w x (block_h / row_chunk) threads; it divides ``block_h``,
-  and a block has 32 to 512 threads (at most 512 keep 128 registers a
-  thread, so no tile spills).  The reference's 0 (all rows at once) is a
-  TPU vector-register choice with no thread to hold it.
+  (block_h + F - 1) rows of block_w + F - 1 f32, padded to a multiple of 4,
+  at most 86 KB at F = 15.  The reference's tiles up to 256 x 4096 fit a
+  TPU's VMEM, not 227 KB of shared memory.  block_h 1 to 4 are gone: the
+  14 halo rows a tile stages at F 15 are 4.5 to 15 times the rows it
+  computes.  block_w 16 is gone: with at least ``kernel.ROW_THREADS``
+  threads a row it admitted only col_chunk 1.
+* ``row_chunk`` (1, 2, 4, 8) x ``col_chunk`` (1, 2, 4): the outputs a
+  thread computes in registers, the tile_size_y and tile_size_x of the BAT
+  convolution.  A block runs (block_w / col_chunk) x (block_h / row_chunk)
+  threads: 128 to the tile's launch bound, ``kernel.max_threads`` (512, so
+  128 registers a thread; 384 and 168 registers for the bf16 8 x 4 tile,
+  which spilled at 128), at least ``kernel.ROW_THREADS`` of them along a
+  row.  col_chunk 8 is gone: its 22-value windows spilled at every
+  register bound tried (128, 168 and 255), and it was never faster than 4
+  in the first card run.  The reference's row_chunk 0 (all rows at once) is
+  a TPU vector-register choice with no thread to hold it.
 * ``unroll_fh``, ``unroll_fw`` (1, 3, 5, 15): taps per unrolled chunk of
-  the filter's rows and columns, divisors of F as the reference's.
+  the filter's rows and columns, divisors of F as the reference's.  A chunk
+  of unroll_fh rows reads row_chunk + unroll_fh - 1 input rows, so rolled
+  rows re-read the rows their chunks share; a rolled column chunk loads its
+  own window.  Fully unrolled, the taps are straight-line code, row_chunk x
+  col_chunk x F^2 FMAs a thread.
 * ``acc_dtype`` (f32, bf16) and ``filter_smem`` (the filter in shared
   memory, or in ``__constant__`` memory: the paper's read-only choice).
 
-Blocks mask the ragged edge, so no tile needs to divide the output.  The
-constraints admit exactly the configs the compiled libraries can launch.
+Every row_chunk and col_chunk divides every block_h and block_w of the
+menus.  Blocks mask the ragged edge, so no tile needs to divide the
+output.  The constraints admit exactly the configs the compiled libraries
+can launch.
 """
 
 from __future__ import annotations
@@ -34,6 +48,11 @@ from . import kernel, ops, ref
 
 #: the JAX package's small correctness shape (its ``make_inputs(small=True)``)
 SMALL_SHAPE = {"h": 48, "w": 160, "fh": 5, "fw": 5}
+#: (h, w, fh, fw) at which every compiled tile is held against the plain
+#: version: outputs that no block divides, with rows of a multiple of 4
+#: floats (staged by cp.async) and without (staged by plain loads)
+TILE_SHAPES = ((101, 308, 5, 5), (101, 307, 5, 5), (300, 604, 15, 15),
+               (301, 603, 15, 15))
 
 
 def build_space(h: int, w: int, fh: int, fw: int) -> SearchSpace:
@@ -48,28 +67,52 @@ def build_space(h: int, w: int, fh: int, fw: int) -> SearchSpace:
         Param("unroll_fh", tuple(u for u in kernel.UNROLL if fh % u == 0)),
         Param("unroll_fw", tuple(u for u in kernel.UNROLL if fw % u == 0)),
         Param("row_chunk", kernel.ROW_CHUNK),
+        Param("col_chunk", kernel.COL_CHUNK),
         Param("acc_dtype", ("f32", "bf16")),
         Param("filter_smem", (0, 1)),
     ]
-    lo, hi = kernel.MIN_THREADS, kernel.MAX_THREADS
+    lo = kernel.MIN_THREADS
 
     def threads_ok(c):
-        t = kernel.threads(c["block_h"], c["block_w"], c["row_chunk"])
-        return (lo <= t) & (t <= hi)
+        t = kernel.threads(c["block_h"], c["block_w"], c["row_chunk"],
+                           c["col_chunk"])
+        return (lo <= t) & (t <= kernel.max_threads(
+            c["row_chunk"], c["col_chunk"], c["acc_dtype"]))
+
+    def row_ok(c):
+        return c["block_w"] // c["col_chunk"] >= kernel.ROW_THREADS
+
+    def smem_ok(c):
+        return kernel.smem_bytes(c["block_h"], c["block_w"], fh,
+                                 c["filter_smem"]) <= SMEM_PER_BLOCK
 
     constraints = [
-        Constraint("row_chunk_divides",
-                   lambda c: c["block_h"] % c["row_chunk"] == 0,
-                   vec=lambda c: c["block_h"] % c["row_chunk"] == 0),
         Constraint("threads", lambda c: bool(threads_ok(c)), vec=threads_ok),
-        Constraint("smem", lambda c: kernel.smem_bytes(
-            c["block_h"], c["block_w"], fh, c["filter_smem"])
-            <= SMEM_PER_BLOCK,
-            vec=lambda c: kernel.smem_bytes(
-                c["block_h"], c["block_w"], fh, c["filter_smem"])
-            <= SMEM_PER_BLOCK),
+        Constraint("row_threads", lambda c: bool(row_ok(c)), vec=row_ok),
+        Constraint("smem", lambda c: bool(smem_ok(c)), vec=smem_ok),
     ]
     return SearchSpace(params, constraints, name="conv2d_h100")
+
+
+def tile_configs(h: int, w: int, fh: int, fw: int) -> list[dict]:
+    """One admitted config for every compiled tile at this shape: each
+    (unroll_fh, row_chunk x col_chunk, unroll_fw, acc_dtype, filter_smem)
+    the libraries hold for the filter's size, with the admitted block
+    shapes cycled."""
+    space = build_space(h, w, fh, fw)
+    cfgs = space.valid_configs()
+    out = []
+    for i, (uh, (rc, cc), uw, acc, fs) in enumerate(
+            (uh, t, uw, acc, fs)
+            for uh in space.param("unroll_fh").values for t in kernel.TILES
+            for uw in space.param("unroll_fw").values
+            for acc in ("f32", "bf16") for fs in (0, 1)):
+        fits = [c for c in cfgs if (c["unroll_fh"], c["row_chunk"],
+                                    c["col_chunk"], c["unroll_fw"],
+                                    c["acc_dtype"], c["filter_smem"])
+                == (uh, rc, cc, uw, acc, fs)]
+        out.append(fits[i % len(fits)])
+    return out
 
 
 def numpy_inputs(seed: int, h: int, w: int, fh: int, fw: int) -> dict:

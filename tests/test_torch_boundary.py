@@ -6,6 +6,7 @@ import ast
 import importlib.util
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -191,6 +192,89 @@ def test_the_product_check_sees_a_convolution():
     assert _products(ast.parse("ops.conv2d(image, filt, cfg)\n")) == []
     ref = ast.parse((PORT / "kernels" / "conv2d" / "ref.py").read_text())
     assert len(_products(ref)) == 1
+
+
+#: the sources whose launches may take more than 48 KB of dynamic shared
+#: memory; hotspot's edge buffers and pnpoly's slopes stay under it
+OPTING_IN = {"conv2d.cu", "dedisp.cu", "expdist.cu", "flash_attention.cu",
+             "gemm.cu", "nbody.cu"}
+
+
+def test_shared_memory_opt_in_is_per_device():
+    """The opt-in to more than 48 KB of dynamic shared memory is an
+    attribute of a kernel on each device.  No launcher remembers it once
+    per process (a ``smem_set``) or sets the attribute itself: each one
+    whose launches may need it calls ``opt_in_smem`` (``csrc/common.cuh``),
+    which remembers it per kernel and per device."""
+    common = (PORT / "csrc" / "common.cuh").read_text()
+    helper = common[common.index("template <auto K>"):]
+    helper = helper[:helper.index("\n}\n")]
+    assert "static int opted[MAX_DEVICES]" in helper
+    assert "cudaGetDevice(&dev)" in helper and "opted[dev]" in helper
+    assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in helper
+    calling = set()
+    for src in sorted((PORT / "csrc").glob("*.cu")):
+        text = src.read_text()
+        assert "smem_set" not in text, src.name
+        assert "cudaFuncAttributeMaxDynamicSharedMemorySize" not in text, \
+            src.name
+        if re.search(r"\bopt_in_smem<\w+>\(", text):
+            assert '#include "common.cuh"' in text, src.name
+            calling.add(src.name)
+    assert calling == OPTING_IN
+
+
+_FAKE_NVCC = """#!/bin/sh
+# a stand-in compiler: names its output after -o, prints a ptxas line,
+# fails where a -DFAIL is given
+for a in "$@"; do
+  case "$prev" in -o) out="$a";; esac
+  case "$a" in -DFAIL=*) echo "error: asked to fail"; exit 1;; esac
+  prev="$a"
+done
+echo "ptxas info    : Used 8 registers"
+sleep 0.3
+touch "$out"
+"""
+
+
+def _fake_toolchain(tmp_path, monkeypatch):
+    from repro_torch import _build
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text("// a kernel\n")
+    fake = tmp_path / "nvcc"
+    fake.write_text(_FAKE_NVCC)
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "build")
+    monkeypatch.setattr(_build, "nvcc", lambda: str(fake))
+    return _build
+
+
+def test_build_compiles_every_variant_at_once(tmp_path, monkeypatch):
+    """``build_all`` starts one compiler a variant, all at once, keeps each
+    one's output as its log, records when each ended, and reuses what it
+    built."""
+    _build = _fake_toolchain(tmp_path, monkeypatch)
+    variants = {f"v{i}": {"X": i} for i in range(4)}
+    built = _build.build_all({"k.cu": variants})["k.cu"]
+    assert all(lib.exists() for lib in built.libs.values())
+    assert set(built.finished) == set(variants)
+    assert all(0.3 <= t <= built.seconds for t in built.finished.values())
+    assert built.seconds < 4 * 0.3           # in parallel, not one by one
+    log = built.libs["v0"].parent / "v0.log"
+    assert "Used 8 registers" in log.read_text()
+    again = _build.build_all({"k.cu": variants})["k.cu"]
+    assert again.libs == built.libs
+    assert (again.seconds, again.finished) == (0.0, {})
+
+
+def test_build_raises_with_the_failed_compile_log(tmp_path, monkeypatch):
+    _build = _fake_toolchain(tmp_path, monkeypatch)
+    with pytest.raises(RuntimeError,
+                       match=r"(?s)k\.cu \[bad\] exit 1.*asked to fail"):
+        _build.build_all({"k.cu": {"good": {"X": 1}, "bad": {"FAIL": 1}}})
 
 
 def test_inputs_from_numpy_takes_a_dtype():

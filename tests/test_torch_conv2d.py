@@ -22,6 +22,8 @@ Tolerances, rel-L2:
 """
 
 import functools
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -35,11 +37,15 @@ from repro.kernels.conv2d import kernel as jkernel  # noqa: E402
 from repro.kernels.conv2d.ref import conv2d_reference as jnp_reference  # noqa: E402
 from repro.staticcheck.spaceaudit import audit_space  # noqa: E402
 from repro_torch.core import space as tspace  # noqa: E402
+from repro_torch.kernels.common import fitting_config  # noqa: E402
 from repro_torch.kernels.conv2d import kernel, ops  # noqa: E402
 from repro_torch.kernels.conv2d.ref import conv2d_reference  # noqa: E402
 from repro_torch.kernels.conv2d.space import (  # noqa: E402
-    SMALL_SHAPE, Conv2dProblem, build_space, numpy_inputs)
+    SMALL_SHAPE, TILE_SHAPES, Conv2dProblem, build_space, numpy_inputs,
+    tile_configs)
 
+SOURCE = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / \
+    "csrc" / "conv2d.cu"
 TOLS = {"f32": 5e-3, "bf16": 3e-2}     # tests/test_kernels.py TOLS["conv2d"]
 PALLAS_TOL = 1e-6
 ORACLE_TOL = 1e-6
@@ -139,8 +145,16 @@ def test_snap_unroll_is_the_references():
             got = kernel.snap_unroll(u, f)
             assert f % got == 0 and got <= u
             assert not any(f % v == 0 for v in range(got + 1, min(u, f) + 1))
-    assert set(kernel.VARIANTS) == {"f5_u1", "f5_u5", "f15_u1", "f15_u3",
-                                    "f15_u5", "f15_u15"}
+    # one build per (filter size, row unroll, accumulator), and with the
+    # rows unrolled whole one per filter home
+    assert set(kernel.VARIANTS) == {
+        f"f{f}_u{u}_{acc}" + (f"_fs{fs}" if u == f else "")
+        for f, us in ((5, (1, 5)), (15, (1, 3, 5, 15)))
+        for u in us for acc in ("f32", "bf16") for fs in (0, 1)}
+    assert len(kernel.VARIANTS) == 16
+    assert kernel.VARIANTS["f15_u15_bf16_fs1"] == {
+        "CONV_F": 15, "CONV_UFH": 15, "CONV_ACC_BF16": 1, "CONV_FSMEM": 1}
+    assert "CONV_FSMEM" not in kernel.VARIANTS["f15_u5_f32"]
 
 
 def rebuild(space, mod):
@@ -171,18 +185,154 @@ def test_space_compiles_and_audits_clean(shape):
 
 
 def test_space_sizes():
-    """4608 of 8960 configs at the default shape: a block of 32 to 512
-    threads with row_chunk dividing block_h."""
+    """6112 of 12 288 configs at the default shape: a compiled row_chunk x
+    col_chunk tile in a block of 128 threads to its launch bound (512, 384
+    for the bf16 8 x 4 tile), at least 8 a row."""
     prob = Conv2dProblem(device="cpu")
     assert (prob.space.cardinality, prob.space.compiled().n_valid) \
-        == (8960, 4608)
+        == (12288, 6112)
     assert prob.space.satisfies(ops.DEFAULT_CONFIG)
 
 
+def _source_menu() -> tuple[set, dict]:
+    """``CONV_TILES``'s (row_chunk, col_chunk), the unroll_fw values each
+    is built at, and the launch bound ``CONV_MAX_THREADS``, read from the
+    CUDA source."""
+    text = SOURCE.read_text()
+    block = text[text.index("#define CONV_TILES(X)"):]
+    block = block[:block.index("\n\n")]
+    tiles = {tuple(int(v) for v in t)
+             for t in re.findall(r"X\((\d+), (\d+)\)", block)}
+    ufw = text[text.index("#define CONV_UFW("):]
+    ufw = ufw[:ufw.index("\n\n")]
+    unrolls = tuple(int(u) for u in re.findall(r"RX_, (\d+)\)", ufw))
+    bound = re.search(r"#define CONV_MAX_THREADS\(RY, RX\) \(CONV_ACC_BF16 "
+                      r"&& \(RY\) \* \(RX\) >= (\d+) \? (\d+) : (\d+)\)",
+                      text).groups()
+    return tiles, {"unroll_fw": unrolls,
+                   "bound": tuple(int(v) for v in bound)}
+
+
+def test_compiled_menu_mirrors_the_source():
+    tiles, consts = _source_menu()
+    assert tiles == set(kernel.TILES) and len(kernel.TILES) == len(tiles) \
+        == 12
+    wide, narrow = consts["bound"][1:]
+    assert consts["unroll_fw"] == kernel.UNROLL
+    assert (wide, narrow) == (kernel.WIDE_BF16_THREADS, kernel.MAX_THREADS)
+    for rc, cc in kernel.TILES:
+        for acc in ("f32", "bf16"):
+            want = wide if acc == "bf16" and rc * cc >= consts["bound"][0] \
+                else narrow
+            assert kernel.max_threads(rc, cc, acc) == want
+
+
+@pytest.mark.parametrize("shape", [Conv2dProblem.default_shape, SMALL_SHAPE],
+                         ids=["full", "small"])
+def test_every_admitted_config_is_compiled(shape):
+    """Each admitted config names a compiled tile of a built library, and
+    at the default shape every compiled tile is admitted."""
+    f = shape["fh"]
+    space = build_space(*(shape[k] for k in ("h", "w", "fh", "fw")))
+    admitted = set()
+    for c in space.valid_configs():
+        admitted.add((c["row_chunk"], c["col_chunk"]))
+        assert kernel.variant(f, c["unroll_fh"], c["acc_dtype"],
+                              c["filter_smem"]) in kernel.VARIANTS
+        assert f % kernel.snap_unroll(c["unroll_fw"], f) == 0
+    assert admitted <= set(kernel.TILES)
+    if shape is Conv2dProblem.default_shape:
+        assert admitted == set(kernel.TILES)
+
+
+def test_shared_memory_and_registers_by_hand():
+    """The shared memory a block takes and the register budget the space
+    charges (each tile's launch bound), counted by hand."""
+    # 64 x 128 outputs at F 15: 78 rows of 142 floats padded to 144, and
+    # the filter's 15 rows padded to 16 words
+    assert kernel.pitch(128, 15) == 144
+    assert kernel.smem_bytes(64, 128, 15, 0) == 78 * 144 * 4 == 44928
+    assert kernel.smem_bytes(64, 128, 15, 1) == (78 * 144 + 15 * 16) * 4
+    # 8 x 32 at F 5: 12 rows of 36 floats (already a multiple of 4), the
+    # filter's 5 rows padded to 8
+    assert kernel.smem_bytes(8, 32, 5, 1) == (12 * 36 + 5 * 8) * 4
+    # the largest block: 78 rows of 272 floats, 86 KB, well within 227 KB
+    assert kernel.smem_bytes(64, 256, 15, 1) == (78 * 272 + 240) * 4 == 85824
+    # the register file (65 536) over a launch bound, in ptxas's units of
+    # 8: 512 threads leave 128 registers a thread, 384 leave 170, so 168
+    assert [65536 // t // 8 * 8 for t in (512, 384)] == [128, 168]
+    # every tile at 512 threads but the bf16 ones of 32 outputs (8 x 4),
+    # whose filter-in-shared-memory build spilled at 128 registers
+    assert kernel.max_threads(8, 4, "f32") == 512
+    assert kernel.max_threads(8, 4, "bf16") == 384
+    assert kernel.max_threads(4, 4, "bf16") == 512
+    space = build_space(**Conv2dProblem.default_shape)
+    cfg = dict(ops.DEFAULT_CONFIG, block_h=64, block_w=256, row_chunk=8,
+               col_chunk=4, unroll_fh=15, unroll_fw=15)
+    assert kernel.threads(64, 256, 8, 4) == 512
+    assert space.satisfies(dict(cfg, acc_dtype="f32"))
+    assert not space.satisfies(dict(cfg, acc_dtype="bf16"))
+    assert space.satisfies(dict(cfg, block_w=128, acc_dtype="bf16"))
+
+
+def test_loads_per_fma():
+    """Shared words a thread reads per FMA: (RY + UFH - 1)(RX + UFW - 1) /
+    (RY RX UFH UFW), plus 1 / RX with the filter in shared memory."""
+    four_by_eight = dict(ops.DEFAULT_CONFIG, row_chunk=8, col_chunk=4,
+                         unroll_fh=15, unroll_fw=15, filter_smem=0)
+    assert kernel.loads_per_fma(four_by_eight, 15) \
+        == pytest.approx(18 * 22 / (8 * 4 * 225)) == pytest.approx(0.055)
+    d = ops.DEFAULT_CONFIG
+    ry, rx = d["row_chunk"], d["col_chunk"]
+    assert kernel.loads_per_fma(d, 15) == pytest.approx(
+        (ry + 14) * (rx + 14) / (ry * rx * 225) + d["filter_smem"] / rx)
+    # one column a thread, rows rolled, as before register blocking: a read
+    # a tap
+    one = dict(d, row_chunk=1, col_chunk=1, unroll_fh=1, unroll_fw=15,
+               filter_smem=0)
+    assert kernel.loads_per_fma(one, 15) == pytest.approx(1.0)
+    # rolled 5-tap column chunks re-read 4 of every 8 window values
+    assert kernel.loads_per_fma(dict(four_by_eight, unroll_fw=5), 15) \
+        == pytest.approx(22 * 8 / (8 * 4 * 15 * 5))
+    assert kernel.loads_per_fma(dict(four_by_eight, filter_smem=1), 15) \
+        == pytest.approx(0.055 + 0.25)
+    # at F 5 the unroll factors snap to 5
+    assert kernel.loads_per_fma(four_by_eight, 5) \
+        == pytest.approx(12 * 8 / (8 * 4 * 25))
+
+
+@pytest.mark.parametrize("shape", TILE_SHAPES,
+                         ids=[f"{h}x{w}_f{f}" for h, w, f, _ in TILE_SHAPES])
+def test_tile_configs_cover_every_compiled_tile(shape):
+    """The card's parity set: one admitted config for every compiled tile
+    of the filter size's libraries, on an output no block divides."""
+    h, w, f, _ = shape
+    cfgs = tile_configs(*shape)
+    space = build_space(*shape)
+    units = sorted({kernel.snap_unroll(u, f) for u in kernel.UNROLL})
+    assert len(cfgs) == len(units) ** 2 * len(kernel.TILES) * 4
+    assert {(c["unroll_fh"], c["row_chunk"], c["col_chunk"], c["unroll_fw"],
+             c["acc_dtype"], c["filter_smem"]) for c in cfgs} \
+        == {(uh, rc, cc, uw, a, fs) for uh in units for rc, cc in kernel.TILES
+            for uw in units for a in ("f32", "bf16") for fs in (0, 1)}
+    assert all(space.satisfies(c) for c in cfgs)
+    oh, ow = h - f + 1, w - f + 1
+    assert all(oh % c["block_h"] and ow % c["block_w"] for c in cfgs)
+
+
 def test_cpu_dispatch_runs_the_plain_version_and_launches_nothing():
+    """The first Pallas cases' configs, each as the admitted config nearest
+    to it (one column a thread) that keeps its unroll factors (snapped to
+    the filter), accumulator and filter home."""
     t, _ = both(3, *SMALL)
+    space = build_space(*SMALL)
+    f = SMALL_SHAPE["fh"]
     before = ops.conv2d.launches
-    for _, cfg in PALLAS_CASES[:4]:
+    for _, case in PALLAS_CASES[:4]:
+        snapped = {k: kernel.snap_unroll(case[k], f)
+                   for k in ("unroll_fh", "unroll_fw")}
+        cfg = fitting_config(space, dict(case, col_chunk=1, **snapped), (
+            "unroll_fh", "unroll_fw", "acc_dtype", "filter_smem"))
         got = ops.conv2d(t["image"], t["filt"], cfg)
         assert torch.equal(got, kernel.conv2d_plain(t["image"], t["filt"],
                                                     **cfg))
