@@ -89,6 +89,21 @@ Phases, each timed:
                No single PyTorch call computes nbody, pnpoly, hotspot
                (600 dependent sweeps), expdist or dedisp (each several
                ops), so their ``library_ms`` is null.
+7. costmodel — the Hopper cost model (``core/costmodel.py``, arch
+               ``h100sxm``) against the table each path just measured
+               (GEMM's: the distinct configs its tuners and sample timed):
+               Spearman's rho on all rows and on those outside the model's
+               fit set (``core/h100_rows.json``), the model's whole-space
+               pick measured now as a share of the table's best, the
+               model over the measurement at ``DEFAULT_CONFIG``, and the
+               host's microseconds a config of ``objectives_for_rows``
+               over the whole space; for the three problems not measured
+               whole (GEMM, hotspot, expdist), rho on ``HOLDOUT`` configs
+               measured now that no path of the run measured, drawn with
+               a seed of their own from outside the fit set; then Fig 5, the portability matrix
+               over (h100, h100sxm, h100pcie), for the five problems
+               measured whole.  A config the model cannot run, or a pick
+               that fails, fails the run.
 
 Prints the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  A kernel's ``launches`` counts its wrapper's calls on its path;
@@ -112,21 +127,24 @@ from contextlib import contextmanager
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-#: H100 SXM data sheet peaks (dense), for the bound
-PEAK_BF16_TC = 989e12     # FLOP/s, bf16 on the tensor cores
-PEAK_HBM = 3.35e12        # bytes/s
-#: f32 instructions outside the tensor cores: 128 per clock per SM x 132 SMs
-#: x 1.98 GHz, an add, a multiply and a fused multiply-add one each (the data
-#: sheet's 67 TFLOP/s counts an FMA as two)
-PEAK_F32_INST = 128 * 132 * 1.98e9
-#: the special-function units (MUFU: ex2, rcp, rsqrt): 16 results per clock
-#: per SM (CUDA C++ Programming Guide, arithmetic instruction throughput,
-#: cc 9.0) x 132 SMs x 1.98 GHz
-PEAK_SFU = 16 * 132 * 1.98e9
+#: the bound's peak rates: the H100 SXM row of the port's cost model
+#: (``core/costmodel.py``, the data sheet's dense peaks), so that the bound
+#: and the model share one source: 989e12 bf16 FLOP/s on the tensor cores;
+#: 3.35e12 bytes/s; f32 instructions outside the tensor cores, 128 per
+#: clock per SM x 132 SMs x 1.98 GHz, an add, a multiply and a fused
+#: multiply-add one each (the data sheet's 67 TFLOP/s counts an FMA as
+#: two); the special-function units (MUFU: ex2, rcp, rsqrt), 16 results
+#: per clock per SM (CUDA C++ Programming Guide, arithmetic instruction
+#: throughput, cc 9.0) x 132 SMs x 1.98 GHz
+SPEC_ARCH = "h100sxm"
 #: configs the hotspot path's landscape measures at most: the register
 #: design's configs cost about 0.2 s each to measure (seven calls of 8 to
 #: 70 ms), so it takes the 1000 that expdist takes (PERF.md section 4)
 HOTSPOT_SAMPLES = 1000
+#: the costmodel phase's held-out configs a problem not measured whole, and
+#: the seed of their draw: configs outside the path's trials, which the
+#: model's terms were never checked against
+HOLDOUT, HOLDOUT_SEED = 64, 1
 #: the 27 configs (acc_dtype, row_chunk, block_h, block_w) that formed the
 #: conv2d cliff of the design before register blocking, 13.2-13.7 ms, each
 #: with unroll_fh 1, unroll_fw 15 and the filter in constant memory: every
@@ -180,15 +198,29 @@ def dedisp_tables(delays, span: int) -> dict:
             .expand(c, d).contiguous()}
 
 
+def holdout_rows(space, seen, n: int, seed: int):
+    """``n`` admitted rows of ``space`` outside ``seen`` (flat indices),
+    drawn with ``seed``, in ascending order."""
+    import numpy as np
+    comp = space.compiled()
+    pool = np.setdiff1d(comp.valid_rows,
+                        np.fromiter(seen, dtype=np.int64, count=len(seen)))
+    pick = np.random.default_rng(seed).choice(len(pool), min(n, len(pool)),
+                                              replace=False)
+    return np.sort(pool[pick])
+
+
 def bound(flops: float, f32_inst: float, nbytes: float,
           sfu_ops: float = 0.0) -> tuple[float, str]:
     """The least time the card could take: the larger of the operations
     (tensor-core FLOPs, the f32 instructions beside them with an FMA
     counted once, and the special-function results) over their peak rates
     and the bytes over the memory rate."""
-    ops_s = max(flops / PEAK_BF16_TC, f32_inst / PEAK_F32_INST,
-                sfu_ops / PEAK_SFU)
-    bytes_s = nbytes / PEAK_HBM
+    from repro_torch.core.costmodel import GPU_GENERATIONS
+    peak = GPU_GENERATIONS[SPEC_ARCH]
+    ops_s = max(flops / peak.peak_tc_bf16, f32_inst / peak.f32_inst,
+                sfu_ops / peak.sfu)
+    bytes_s = nbytes / peak.hbm_bw
     return max(ops_s, bytes_s), "operations" if ops_s >= bytes_s else "bytes"
 
 
@@ -341,6 +373,113 @@ def kernel_table() -> dict:
             "hotspot": (hkernel, hops.hotspot),
             "expdist": (ekernel, eops.expdist),
             "dedisp": (dkernel, dops.dedisp)}
+
+
+def model_check(paths: dict, gemm_trials, defaults: dict, default_s: dict,
+                failures: list[str]) -> dict:
+    """The Hopper cost model (``h100sxm``) against the table each path of
+    this run measured (``paths``: name -> (problem, what ``run_path``
+    returned, or None for GEMM, whose table is the distinct configs of
+    ``gemm_trials``)): Spearman's rho on all rows and on those outside the
+    fit set, the model's whole-space pick measured now as a share of the
+    table's best, the model over the measurement at the default config
+    (``defaults``, measured as ``default_s``), the host's microseconds a
+    config; where the table is not the whole space, rho on
+    :func:`holdout_rows` measured now; then Fig 5 over (h100, h100sxm, h100pcie) for the five problems
+    measured whole.  What fails goes to ``failures``."""
+    import numpy as np
+
+    from repro_torch import calibrate, landscape
+    fit_rows = calibrate.load_rows()["problems"]
+    cm = {}
+    for name, (prob, path) in paths.items():
+        try:
+            if path is None:
+                seen = {prob.space.flat_index(t.config): t.objective
+                        for t in gemm_trials if t.ok}
+                rows = np.array(sorted(seen), dtype=np.int64)
+                meas = np.array([seen[r] for r in rows.tolist()])
+                tried = set(seen)
+            else:
+                rows = np.array([prob.space.flat_index(c)
+                                 for c in path["configs"]], dtype=np.int64)
+                meas = np.array(path["land"]["table"].objectives)
+                res = path["res"]
+                tried = set(rows.tolist()) | {
+                    prob.space.flat_index(t.config) for t in
+                    [t for r in res["runs"].values() for t in r.trials]
+                    + list(res["sampled"])}
+            comp = prob.space.compiled()
+            t0 = time.perf_counter()
+            whole = prob.objectives_for_rows(comp.valid_rows,
+                                             calibrate.FIT_ARCH)
+            host_us = (time.perf_counter() - t0) / len(whole) * 1e6
+            model = prob.objectives_for_rows(rows, calibrate.FIT_ARCH)
+            if not (np.isfinite(model).all() and np.isfinite(whole).all()):
+                failures.append(f"costmodel {name}: the model gives inf to "
+                                f"an admitted config")
+                continue
+            fitset = {r for r, _ in fit_rows[prob.name]}
+            out = np.array([r not in fitset for r in rows.tolist()])
+            rho = calibrate.spearman(model, meas)
+            rho_out = calibrate.spearman(model[out], meas[out]) \
+                if out.sum() > 2 else float("nan")
+            pick = prob.space.from_flat_index(
+                int(comp.valid_rows[int(np.argmin(whole))]))
+            got = prob.evaluate(pick)
+            if not got.ok:
+                failures.append(f"costmodel {name}: its pick {pick} failed: "
+                                f"{got.info}")
+                continue
+            share = float(meas.min()) / got.objective
+            ratio = prob.evaluate(defaults[name], calibrate.FIT_ARCH) \
+                .objective / default_s[name]
+            held = holdout_rows(prob.space, tried | fitset, HOLDOUT,
+                                HOLDOUT_SEED) \
+                if len(rows) < comp.n_valid else np.empty(0, np.int64)
+            held_s = np.array([prob.evaluate(
+                prob.space.from_flat_index(int(r))).objective
+                for r in held.tolist()])
+            if not np.isfinite(held_s).all():
+                failures.append(f"costmodel {name}: a held-out config "
+                                f"failed to run")
+                continue
+            rho_held = calibrate.spearman(
+                prob.objectives_for_rows(held, calibrate.FIT_ARCH), held_s) \
+                if len(held) > 2 else float("nan")
+            cm[name] = {"rho": rho, "rho_outside_fit": rho_out,
+                        "rho_holdout": rho_held, "holdout": held.tolist(),
+                        "holdout_s": held_s.tolist(),
+                        "rows": len(rows), "outside_fit": int(out.sum()),
+                        "pick": pick, "pick_ms": got.objective * 1e3,
+                        "best_ms": float(meas.min()) * 1e3,
+                        "pick_share": share,
+                        "default_model_over_measured": ratio,
+                        "host_us_per_config": host_us}
+            print(f"  {name}: rho {rho:.3f} ({rho_out:.3f} on "
+                  f"{int(out.sum())} of {len(rows)} rows outside the fit); "
+                  f"pick {got.objective * 1e3:.4f} ms = {share:.1%} of the "
+                  f"best {meas.min() * 1e3:.4f}; model/measured at the "
+                  f"default {ratio:.3f}; {host_us:.2f} us a config on the "
+                  f"host" + (f"; rho {rho_held:.3f} on {len(held)} held-out "
+                             f"configs" if len(held) else ""))
+        except Exception as e:          # the phase's failure, reported
+            failures.append(f"costmodel {name}: {e!r}")
+    fig5 = {}
+    for name in ("flash_attention", "nbody", "pnpoly", "conv2d", "dedisp"):
+        prob, path = paths[name]
+        land = path["land"]
+        if land["table"].protocol != "exhaustive":
+            failures.append(f"costmodel {name}: Fig 5 needs the whole table, "
+                            f"got {land['table'].protocol}")
+            continue
+        print(f"  {name}:", end=" ")
+        try:
+            fig5[name] = landscape.fig5(
+                prob, land["trials"], {prob.arch: land["table"]})
+        except Exception as e:
+            failures.append(f"costmodel {name} Fig 5: {e!r}")
+    return {"problems": cm, "portability": fig5}
 
 
 def main(argv=None) -> int:
@@ -965,6 +1104,7 @@ def main(argv=None) -> int:
         gemm_parity(best.config, xf, xf_nk)      # the winner at 4096^3
         record["trials"] = [{"config": t.config, "info": t.info}
                             for t in trials]
+        gemm_trials = trials
 
     def run_path(problem: str, name: str, prob, winner_parity,
                  samples: int | None = None) -> dict:
@@ -1261,6 +1401,8 @@ def main(argv=None) -> int:
               f"+ lo: their floor is {1.5 * abound_s * 1e3:.4f} ms)")
         record["attention_sweep_ms"] = asweep
 
+        default_s = {"gemm": default.objective,
+                     "flash_attention": adefault.objective}
         f32_lines = []
         torch.backends.cudnn.benchmark = True
         for name, prob, path, dcfg, plain, lib, (b_s, b_by), replaces in (
@@ -1297,6 +1439,7 @@ def main(argv=None) -> int:
                                               **dops.DEFAULT_CONFIG),
                  None, (dbound_s, dbound_by), "dedisp/kernel.py:73")):
             dflt = prob.evaluate(dcfg)
+            default_s[name] = dflt.objective
             if not dflt.ok:
                 raise SystemExit(f"chip_smoke: {name} default config "
                                  f"failed: {dflt.info}")
@@ -1434,6 +1577,20 @@ def main(argv=None) -> int:
                   f"{t_s * 1e3:.4f} ms, {reads:.4f} window reads a "
                   f"sample-add")
         record["dedisp_tables_ms"] = dsplit
+
+    with phase("costmodel"):
+        record["costmodel"] = model_check(
+            {"gemm": (full, None), "flash_attention": (ffull, apath),
+             "nbody": (nfull, npath), "pnpoly": (pfull, ppath),
+             "conv2d": (cfull, cpath), "hotspot": (hfull, hpath),
+             "expdist": (efull, epath), "dedisp": (dfull, dpath)},
+            gemm_trials,
+            {"gemm": ops.DEFAULT_CONFIG,
+             "flash_attention": fops.DEFAULT_CONFIG,
+             "nbody": nops.DEFAULT_CONFIG, "pnpoly": pops.DEFAULT_CONFIG,
+             "conv2d": cops.DEFAULT_CONFIG, "hotspot": hops.DEFAULT_CONFIG,
+             "expdist": eops.DEFAULT_CONFIG, "dedisp": dops.DEFAULT_CONFIG},
+            default_s, failures)
 
     lines = [
         {"name": "gemm", "route": "cuda",

@@ -1,5 +1,4 @@
-"""Landscape analyses — one module per paper figure/table (portability
-comes with a second arch id)."""
+"""Landscape analyses — one module per paper figure/table."""
 
 from .centrality import (FFG, build_ffg, build_ffg_reference,
                          centrality_curve, pagerank,
@@ -9,6 +8,7 @@ from .distribution import (distribution_profile, relative_performance,
                            speedup_over_median, top_cluster_fraction)
 from .importance import (feature_importance, fit_surrogate, important_params,
                          reduced_space)
+from .portability import portability_matrix
 from .spacestats import reduced_stats, space_stats
 
 __all__ = [
@@ -18,4 +18,5 @@ __all__ = [
     "distribution_profile", "relative_performance", "speedup_over_median",
     "top_cluster_fraction", "feature_importance", "fit_surrogate",
     "important_params", "reduced_space", "space_stats", "reduced_stats",
+    "portability_matrix",
 ]

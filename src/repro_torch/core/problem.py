@@ -2,11 +2,12 @@
 
 Port of ``repro.core.problem``.  :class:`Trial`, :func:`materialize_configs`,
 :class:`TunableProblem` and :class:`FunctionProblem` behave as the JAX
-package's do.  The JAX package's analytical path (features fed to the TPU
-cost model) has no Hopper counterpart yet, so here every endpoint is
-answered through :meth:`TunableProblem.evaluate`.  :class:`MeasuredProblem`
-times each config on the card with CUDA events, which is the paper's own
-method.
+package's do.  A problem has two evaluators, told apart by the arch id:
+an id of the Hopper cost model (``core.costmodel.ARCH_NAMES``) is answered
+by the analytical path (:meth:`TunableProblem.features` fed to the model,
+columnar where the problem has :meth:`TunableProblem.feature_columns`),
+and :class:`MeasuredProblem` times each config on the card with CUDA
+events, the paper's own method, under the device's id.
 """
 
 from __future__ import annotations
@@ -18,6 +19,9 @@ from typing import Any, Callable, Sequence
 
 from ..device import arch_id, resolve
 from ..telemetry.trace import span
+from .costmodel import (ARCH_NAMES, GPU_GENERATIONS, FeatureBatch,
+                        KernelFeatures, estimate_seconds,
+                        estimate_seconds_batch)
 from .space import Config, SearchSpace
 
 #: the port's arch id when none is given (``repro_torch.device.arch_id``
@@ -99,46 +103,213 @@ def materialize_configs(trials: Sequence[Trial]) -> None:
 
 
 class TunableProblem:
-    """Base class: a search space + an objective (:meth:`evaluate`).
+    """Base class: a search space + an objective.
 
-    Every batched endpoint answers through :meth:`evaluate`, one config at a
-    time: a measured objective cannot be vectorized, and the analytical
-    Hopper model that could be has not been written yet.
+    Subclasses implement :meth:`features` (the analytical path, through the
+    Hopper cost model) or override :meth:`evaluate` (a measured or function
+    problem).  :meth:`_analytical` says which path an arch id takes.
     """
 
     name: str = "problem"
+    #: True when :meth:`features`/:meth:`feature_columns` ignore ``arch``
+    #: (the architecture enters only at cost-model-estimate time) — lets
+    #: multi-architecture sweeps build the feature columns once.
+    arch_independent_features: bool = False
 
     def __init__(self, space: SearchSpace):
         self.space = space
 
-    def evaluate(self, config: Config, arch: str = DEFAULT_ARCH) -> Trial:
+    def analytical(self, arch: str | None) -> bool:
+        """Whether ``arch``'s objectives come from the cost model: here,
+        whenever the problem does not override :meth:`evaluate`."""
+        return type(self).evaluate is TunableProblem.evaluate
+
+    # -- analytical path ------------------------------------------------ #
+    def features(self, config: Config, arch: str) -> KernelFeatures:
         raise NotImplementedError
+
+    def evaluate(self, config: Config, arch: str = DEFAULT_ARCH) -> Trial:
+        if not self.space.satisfies(config):
+            return Trial(config, math.inf, arch, valid=False,
+                         info={"violated": self.space.violated(config)})
+        feats = self.features(config, arch)
+        t = estimate_seconds(feats, arch)
+        return Trial(config, t, arch, valid=math.isfinite(t),
+                     info={"features": feats})
+
+    def feature_columns(self, cols: dict, arch: str) -> FeatureBatch | None:
+        """Optional vectorized feature hook: per-parameter *value* column
+        arrays in, :class:`FeatureBatch` out.  The column math must mirror
+        :meth:`features` operation for operation so the batched cost model
+        produces bit-identical objectives.  Return ``None`` to fall back to
+        the per-config path."""
+        return None
+
+    def features_many(self, configs: Sequence[Config],
+                      arch: str) -> FeatureBatch:
+        """Struct-of-arrays features for a batch of *valid* configs,
+        through :meth:`feature_columns` where the problem provides it
+        (``FeatureBatch.features`` then stays empty), else packed from
+        per-config :meth:`features`."""
+        if configs and \
+                type(self).feature_columns is not TunableProblem.feature_columns:
+            import numpy as np
+            cols = {p.name: np.asarray([c[p.name] for c in configs])
+                    for p in self.space.params}
+            fb = self.feature_columns(cols, arch)
+            if fb is not None:
+                return fb
+        return FeatureBatch.from_features(
+            [self.features(c, arch) for c in configs])
+
+    def _columnar_ok(self, arch: str | None) -> bool:
+        """Whether ``arch``'s row endpoints take the columnar path: a
+        compiled space, the analytical path and a :meth:`feature_columns`.
+        A kernel's ``features`` runs the same numpy math once per config,
+        so the columnar path serves every batch size."""
+        return (self.space.compiled() is not None
+                and self.analytical(arch)
+                and type(self).feature_columns
+                is not TunableProblem.feature_columns)
 
     def objectives_for_rows(self, rows: Sequence[int],
                             arch: str = DEFAULT_ARCH):
         """Objective seconds for *valid* compiled-space rows, as a float64
-        array (``inf`` == invalid on this arch)."""
+        array (``inf`` == invalid on this arch).  Falls back through
+        :meth:`trials_for_rows` when there is no columnar path."""
         import numpy as np
+        rows = list(rows)
+        if not rows:
+            return np.empty(0, dtype=np.float64)
+        if self._columnar_ok(arch):
+            comp = self.space.compiled()
+            fb = self.feature_columns(comp.value_columns(rows), arch)
+            if fb is not None:
+                return np.ascontiguousarray(np.broadcast_to(
+                    np.asarray(estimate_seconds_batch(fb, arch),
+                               dtype=np.float64), (len(rows),)))
         return np.array([t.objective if t.ok else math.inf
                          for t in self.trials_for_rows(rows, arch)],
                         dtype=np.float64)
 
+    def _model_archs(self, archs: Sequence[str]) -> None:
+        """Refuse an arch the cost model does not answer: a measurement
+        belongs to one device and is not shared across arches."""
+        for a in archs:
+            if a not in GPU_GENERATIONS or not self.analytical(a):
+                raise ValueError(
+                    f"{self.name}: the multi-arch endpoints take the cost "
+                    f"model's ids {ARCH_NAMES}, not {a!r}")
+
+    def objectives_for_rows_archs(self, rows: Sequence[int],
+                                  archs: Sequence[str]):
+        """(len(archs), len(rows)) objective matrix of the cost model's
+        ids: the mixed-radix decode and the per-parameter value columns
+        are built once and shared across architectures; only the feature/
+        cost-model sweep runs per arch."""
+        import numpy as np
+        self._model_archs(archs)
+        rows = list(rows)
+        out = np.empty((len(archs), len(rows)), dtype=np.float64)
+        if not rows:
+            return out
+        if self._columnar_ok(archs[0]):
+            comp = self.space.compiled()
+            with span("eval.features", cat="eval", n=len(rows),
+                      archs=len(archs)):
+                cols = comp.value_columns(rows)
+                if self.arch_independent_features:
+                    fbs = [self.feature_columns(cols, archs[0])] * len(archs)
+                else:
+                    fbs = [self.feature_columns(cols, a) for a in archs]
+            if all(fb is not None for fb in fbs):
+                with span("eval.estimate", cat="eval", n=len(rows),
+                          archs=len(archs)):
+                    for i, (fb, arch) in enumerate(zip(fbs, archs)):
+                        out[i] = np.broadcast_to(
+                            np.asarray(estimate_seconds_batch(fb, arch)),
+                            (len(rows),))
+                return out
+        for i, arch in enumerate(archs):
+            out[i] = self.objectives_for_rows(rows, arch)
+        return out
+
+    def trials_for_rows_archs(self, rows: Sequence[int],
+                              archs: Sequence[str]) -> list[list[Trial]]:
+        """Per-arch lazy trials for *valid* compiled-space rows, one list per
+        arch (aligned with ``archs``), from one
+        :meth:`objectives_for_rows_archs` sweep."""
+        rows = [int(r) for r in rows]
+        objs = self.objectives_for_rows_archs(rows, archs)
+        sp = self.space
+        return [[Trial(None, float(o), a, valid=math.isfinite(float(o)),
+                       row=r, space=sp)
+                 for r, o in zip(rows, objs[i])]
+                for i, a in enumerate(archs)]
+
     def trials_for_rows(self, rows: Sequence[int],
                         arch: str = DEFAULT_ARCH) -> list[Trial]:
-        """Evaluate *valid* compiled-space rows (decoded in one batch)."""
+        """Evaluate *valid* compiled-space rows.  On the analytical path
+        the value columns come straight from the code matrix and the
+        seconds from the batched cost model, as lazy trials; constraint
+        checking is skipped (callers pass mask-validated rows).  Otherwise
+        the rows are decoded in one batch and go to :meth:`evaluate_many`.
+        """
         rows = list(rows)
         if not rows:
             return []
         comp = self.space.compiled()
-        if comp is not None:
-            cfgs = comp.decode_many(rows)
-        else:
-            cfgs = [self.space.from_flat_index(int(r)) for r in rows]
-        return self.evaluate_many(cfgs, arch)
+        fb = None
+        if self._columnar_ok(arch):
+            with span("eval.features", cat="eval", n=len(rows), arch=arch):
+                fb = self.feature_columns(comp.value_columns(rows), arch)
+        if fb is None:
+            if comp is not None:
+                cfgs = comp.decode_many(rows)
+            else:
+                cfgs = [self.space.from_flat_index(int(r)) for r in rows]
+            return self.evaluate_many(cfgs, arch)
+        import numpy as np
+        with span("eval.estimate", cat="eval", n=len(rows), arch=arch):
+            times = np.broadcast_to(
+                np.asarray(estimate_seconds_batch(fb, arch),
+                           dtype=np.float64), (len(rows),))
+        sp = self.space
+        return [Trial(None, float(t), arch, valid=math.isfinite(float(t)),
+                      row=r, space=sp) for r, t in zip(rows, times)]
 
+    # -- convenience ------------------------------------------------------ #
     def evaluate_many(self, configs: Sequence[Config],
                       arch: str = DEFAULT_ARCH) -> list[Trial]:
-        return [self.evaluate(c, arch) for c in configs]
+        """Evaluate a batch of configs: on the analytical path one numpy
+        sweep (:meth:`features_many` + :func:`estimate_seconds_batch`),
+        otherwise :meth:`evaluate` one config at a time (a measured
+        objective cannot be vectorized)."""
+        configs = list(configs)
+        if not self.analytical(arch):
+            return [self.evaluate(c, arch) for c in configs]
+        trials: list[Trial | None] = []
+        slots: list[int] = []
+        for cfg in configs:
+            if not self.space.satisfies(cfg):
+                trials.append(Trial(cfg, math.inf, arch, valid=False,
+                                    info={"violated": self.space.violated(cfg)}))
+            else:
+                slots.append(len(trials))
+                trials.append(None)
+        if slots:
+            import numpy as np
+            batch = self.features_many([configs[j] for j in slots], arch)
+            times = np.broadcast_to(
+                np.asarray(estimate_seconds_batch(batch, arch),
+                           dtype=np.float64), (len(slots),))
+            per_row = batch.features or None
+            for i, j in enumerate(slots):
+                t = float(times[i])
+                info = {"features": per_row[i]} if per_row else {}
+                trials[j] = Trial(configs[j], t, arch,
+                                  valid=math.isfinite(t), info=info)
+        return trials  # type: ignore[return-value]
 
     def exhaustive(self, arch: str = DEFAULT_ARCH,
                    limit: int | None = None) -> list[Trial]:
@@ -159,6 +330,11 @@ class TunableProblem:
                 arch: str = DEFAULT_ARCH) -> list[Trial]:
         """The paper's random-configs protocol."""
         return self.evaluate_many(self.space.sample_distinct(n, seed), arch)
+
+    def archs(self) -> tuple[str, ...]:
+        """The cost model's arch ids, which every analytical problem
+        answers."""
+        return ARCH_NAMES
 
 
 class FunctionProblem(TunableProblem):
@@ -224,9 +400,10 @@ class MeasuredProblem(TunableProblem):
     repeat count.  A config that fails to build or to launch is an invalid
     trial carrying its error (the paper's "Valid" column).
 
-    Trials are recorded under the device's arch id (:attr:`arch`); asking
-    for another arch is an error, since a measurement belongs to the device
-    it was taken on.
+    Trials are recorded under the device's arch id (:attr:`arch`).  An id
+    of the cost model (``core.costmodel.ARCH_NAMES``) is answered by the
+    analytical path (:meth:`TunableProblem.evaluate`); any other id is an
+    error, since a measurement belongs to the device it was taken on.
     """
 
     def __init__(self, space: SearchSpace,
@@ -251,10 +428,20 @@ class MeasuredProblem(TunableProblem):
                                       device=self.device)
         return cuda_event_seconds(fn, self.repeats, self.warmup, self._flush)
 
-    def evaluate(self, config: Config, arch: str | None = None) -> Trial:
+    def analytical(self, arch: str | None) -> bool:
+        """A cost-model id takes the analytical path; ``None`` or the
+        device's own id is measured; any other id raises."""
+        if arch in GPU_GENERATIONS:
+            return True
         if arch is not None and arch != self.arch:
             raise ValueError(f"{self.name} measures on {self.device} "
-                             f"(arch {self.arch!r}), not {arch!r}")
+                             f"(arch {self.arch!r}), not {arch!r}; the cost "
+                             f"model answers {ARCH_NAMES}")
+        return False
+
+    def evaluate(self, config: Config, arch: str | None = None) -> Trial:
+        if self.analytical(arch):
+            return super().evaluate(config, arch)
         arch = self.arch
         if not self.space.satisfies(config):
             return Trial(config, math.inf, arch, valid=False,

@@ -101,6 +101,7 @@ class CompiledSpace:
         self.row_pos[self.valid_rows] = np.arange(len(self.valid_rows))
         self._nbr_indptr: np.ndarray | None = None
         self._nbr_indices: np.ndarray | None = None
+        self._value_arrays: list[np.ndarray] | None = None
         #: plain-int copies for the tuners' per-candidate hot loops (numpy
         #: scalar indexing costs ~3x a list lookup at these sizes)
         self.py_cards = [int(c) for c in self.cards]
@@ -217,6 +218,20 @@ class CompiledSpace:
 
     def flat_index_many(self, configs: Sequence["Config"]) -> np.ndarray:
         return self.space.flat_index_many(configs)
+
+    def value_columns(self, rows: Sequence[int] | np.ndarray
+                      ) -> dict[str, np.ndarray]:
+        """Per-parameter *value* column arrays for ``rows``: the column
+        form the vectorized constraints consume, fed to the kernels'
+        ``feature_columns``.  No dicts per config."""
+        rows = np.asarray(rows, dtype=np.int64)
+        codes = CompiledSpace.codes_for(self.space, rows)
+        if self._value_arrays is None:
+            self._value_arrays = [_value_array(p.values)
+                                  for p in self.space.params]
+        return {p.name: va[codes[:, i]]
+                for i, (p, va) in enumerate(zip(self.space.params,
+                                                self._value_arrays))}
 
     def valid_configs(self) -> list["Config"]:
         """All constraint-satisfying configs, in ``SearchSpace.enumerate``

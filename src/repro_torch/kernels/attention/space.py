@@ -11,6 +11,8 @@ Every block divides its dimension: the kernel does not pad, since padded K
 rows would enter the softmax.  Its constraints admit exactly the configs
 the compiled libraries can launch, so a failed launch is a fault in the
 space or the kernel, never a silently invalid trial.
+:meth:`AttentionProblem.feature_math` gives the Hopper cost model the
+kernel's counts.
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ from __future__ import annotations
 import numpy as np
 
 from ...core.space import Config, Constraint, Param, SearchSpace
-from ..common import SMEM_PER_BLOCK, KernelProblem, inputs_from_numpy
+from ..common import (SMEM_PER_BLOCK, KernelProblem, bound_regs,
+                      inputs_from_numpy, per_value)
 from . import kernel, ops, ref
 
 #: the JAX package's small correctness shape (its ``make_inputs(small=True)``)
@@ -72,6 +75,18 @@ def build_space(hq: int, hkv: int, tq: int, tk: int,
     return SearchSpace(params, constraints, name="flash_attention_h100")
 
 
+def kv_tiles(tq: int, tk: int, block_q: int, block_kv: int,
+             skip_masked: int) -> int:
+    """kv tiles one head's q tiles compute, summed: with ``skip_masked``
+    a q tile stops at the tile holding its last row's last visible column
+    (the causal mask aligned to the bottom right), else it takes all."""
+    full = tk // block_kv
+    if not skip_masked:
+        return (tq // block_q) * full
+    last = np.arange(1, tq // block_q + 1) * block_q + (tk - tq)
+    return int(np.clip(-(-last // block_kv), 0, full).sum())
+
+
 def numpy_inputs(seed: int, hq: int, hkv: int, tq: int, tk: int, d: int,
                  causal: bool = True) -> dict:
     """q, k and v drawn from N(0, 1) with numpy, as the JAX package's
@@ -94,6 +109,39 @@ class AttentionProblem(KernelProblem):
     def build_space(self) -> SearchSpace:
         return build_space(*(self.shape[k]
                              for k in ("hq", "hkv", "tq", "tk", "d")))
+
+    def feature_math(self, c: dict) -> dict:
+        """The kernel's counts (``csrc/flash_attention.cu``, causal): the
+        (row, column) pairs of every kv tile it computes, each 2 d FLOPs
+        for S = Q K^T and 4 d for P V with P as bf16 hi + lo, in m64 x
+        block_kv x k16 wgmmas; about 6 f32 instructions and an exponential
+        a pair for the online softmax, the accumulator's rescale (d a row
+        a tile) and with a bf16 accumulator its two conversions; Q's and
+        K's smem words for S and V's for P V (P comes from registers); q,
+        k, v and the output once from HBM, K and V again from L2 for every
+        block after the first.  A block's registers are its launch
+        bound's: the space keeps ``kernel.frag_regs`` within
+        ``kernel.MAX_FRAG_REGS``, so none spill."""
+        hq, hkv, tq, tk, d = (self.shape[k] for k in
+                              ("hq", "hkv", "tq", "tk", "d"))
+        bq, bkv, bh = c["block_q"], c["block_kv"], c["block_h"]
+        tiles = per_value(lambda q, kv, sk: kv_tiles(tq, tk, q, kv, sk),
+                          bq, bkv, c["skip_masked"])
+        pairs = hq * tiles * bq * bkv
+        rescale = pairs * d / bkv
+        f32 = 6.0 * pairs + rescale + np.where(c["acc_dtype"] == "bf16",
+                                                2.0 * rescale, 0.0)
+        words = ((64 + bkv) * d / 2.0 + d * bkv) / (64.0 * bkv)
+        threads = 128 * (kernel.warpgroups(bq, bh) + 1)
+        return {"tc_flops": 6.0 * d * pairs, "tile_m": 64, "tile_n": bkv,
+                "tile_k": 16, "f32_inst": f32, "sfu_ops": pairs,
+                "smem_words": pairs * words,
+                "hbm_bytes": 4.0 * d * (hq * tq + hkv * tk),
+                "l2_bytes": 4.0 * d * (hq // bh) * tiles * bkv
+                - 4.0 * d * hkv * tk,
+                "smem_per_block": kernel.smem_bytes(bq, bh, bkv, d),
+                "threads": threads, "regs": bound_regs(threads),
+                "blocks": (hq // bh) * (tq // bq), "stages": kernel.STAGES}
 
     # -- correctness hooks ------------------------------------------------ #
     def make_inputs(self, seed: int = 0, small: bool = True,

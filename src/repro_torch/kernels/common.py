@@ -6,8 +6,9 @@ Port of ``repro.kernels.common``.  Each kernel package provides:
                   a config from its space, and its plain PyTorch version,
   ``ops.py``    — the public wrapper: the kernel for CUDA tensors, the
                   plain version for CPU tensors, and a launch counter,
-  ``space.py``  — the :class:`KernelProblem`: a Hopper search space and the
-                  measured evaluator.
+  ``space.py``  — the :class:`KernelProblem`: a Hopper search space, the
+                  measured evaluator and the features the Hopper cost
+                  model (``core/costmodel.py``) turns into seconds.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
+from ..core.costmodel import FeatureBatch, KernelFeatures
 from ..core.problem import MeasuredProblem
 from ..core.space import Config, SearchSpace
 from ..device import resolve
@@ -140,18 +142,45 @@ def inputs_from_numpy(arrays: dict, device=None,
             for k, v in arrays.items()}
 
 
+def bound_regs(threads):
+    """The most registers a thread may have under a launch bound of
+    ``threads`` a block, one block an SM: the 65 536 of an SM, allocated
+    per warp in units of 256, at most 255 (works on numpy columns too)."""
+    warps = -(-np.asarray(threads) // 32)
+    return np.minimum(255, 65536 // (warps * 256) * 8)
+
+
+def per_value(fn: Callable[..., float], *cols) -> np.ndarray:
+    """``fn`` of each row's values of ``cols`` (scalars or equal-length
+    columns), called once per distinct row: for a count that the kernel
+    module computes with scalar code (a loop, a table), in a feature
+    column."""
+    arrays = [np.atleast_1d(np.asarray(c)) for c in cols]
+    n = max(len(a) for a in arrays)
+    rows = list(zip(*(np.broadcast_to(a, (n,)).tolist() for a in arrays)))
+    done = {r: float(fn(*r)) for r in set(rows)}
+    out = np.array([done[r] for r in rows], dtype=np.float64)
+    return out if any(np.ndim(c) for c in cols) else out[0]
+
+
 class KernelProblem(MeasuredProblem):
     """A tunable kernel bound to a concrete input shape and a device.
 
-    ``device`` defaults to ``"cuda"`` and raises on a host with no card
-    (pass ``device="cpu"`` to run the plain versions, as the tests do);
-    trials are recorded under the device's arch id, as in
-    :class:`MeasuredProblem`.
+    Two evaluators: the measured one on the card, under the device's arch
+    id (``device`` defaults to ``"cuda"`` and raises on a host with no
+    card; pass ``device="cpu"`` to run the plain versions, as the tests
+    do), and the Hopper cost model under the ids of
+    ``core.costmodel.ARCH_NAMES``, host arithmetic on :meth:`feature_math`
+    that needs no card (a model-only caller builds the problem with
+    ``device="cpu"``).
     """
 
     #: subclasses set these
     default_shape: dict[str, int] = {}
     kernel_name: str = "kernel"
+    #: the features do not depend on the arch id: SXM and PCIe share
+    #: Hopper's per-SM limits, and the ids differ only in their rates
+    arch_independent_features = True
 
     def __init__(self, shape: dict[str, int] | None = None, device=None,
                  repeats: int = 5, warmup: int = 2):
@@ -170,6 +199,26 @@ class KernelProblem(MeasuredProblem):
         """A zero-argument callable running ``config`` once at
         :attr:`shape` on :attr:`device` (what the evaluator times)."""
         raise NotImplementedError
+
+    # -- the cost model's features ----------------------------------------- #
+    def feature_math(self, c: dict) -> dict:
+        """The kernel's :class:`FeatureBatch` columns at :attr:`shape` from
+        a config's values ``c``: each a numpy scalar (one config) or a
+        column (many).  One expression serves :meth:`features` and
+        :meth:`feature_columns`, so both give the cost model the same
+        floats."""
+        raise NotImplementedError
+
+    def features(self, config: Config, arch: str) -> KernelFeatures:
+        f = self.feature_math({k: np.asarray(v) for k, v in config.items()})
+        tile = tuple(int(f.pop(k, FeatureBatch.DEFAULTS[k]))
+                     for k in ("tile_m", "tile_n", "tile_k"))
+        return KernelFeatures(wgmma_tile=tile,
+                              **{k: float(v) for k, v in f.items()})
+
+    def feature_columns(self, cols: dict, arch: str) -> FeatureBatch:
+        n = len(next(iter(cols.values())))
+        return FeatureBatch.from_columns(n, **self.feature_math(cols))
 
     # -- correctness hooks ------------------------------------------------ #
     def make_inputs(self, seed: int = 0, small: bool = True,

@@ -34,7 +34,8 @@ The space keeps the reference's parameters and their meanings
 Every row_chunk and col_chunk divides every block_h and block_w of the
 menus.  Blocks mask the ragged edge, so no tile needs to divide the
 output.  The constraints admit exactly the configs the compiled libraries
-can launch.
+can launch.  :meth:`Conv2dProblem.feature_math` gives the Hopper cost model
+the kernel's counts.
 """
 
 from __future__ import annotations
@@ -43,7 +44,8 @@ import numpy as np
 import torch
 
 from ...core.space import Config, Constraint, Param, SearchSpace
-from ..common import SMEM_PER_BLOCK, KernelProblem, inputs_from_numpy
+from ..common import (SMEM_PER_BLOCK, KernelProblem, bound_regs,
+                      inputs_from_numpy)
 from . import kernel, ops, ref
 
 #: the JAX package's small correctness shape (its ``make_inputs(small=True)``)
@@ -132,6 +134,46 @@ class Conv2dProblem(KernelProblem):
 
     def build_space(self) -> SearchSpace:
         return build_space(*(self.shape[k] for k in ("h", "w", "fh", "fw")))
+
+    def feature_math(self, c: dict) -> dict:
+        """The kernel's counts (``csrc/conv2d.cu``): F^2 taps an output of
+        every block (the ragged edge computed too), each one FFMA (in bf16
+        a bf16x2 multiply and add for two columns, so two instructions a
+        tap at col_chunk 1); the shared words of
+        :func:`~repro_torch.kernels.conv2d.kernel.loads_per_fma` (the menus
+        hold only divisors of F, which it would snap to), the image's
+        loaded col_chunk words an instruction, the filter's (with
+        ``filter_smem``) read by a whole warp at once; the rolled chunks'
+        per-lane constant filter loads (one a filter value and chunk of
+        outputs) and 4 of loop a trip; staging each block's tile with its
+        halo from L2, a 16-byte copy and its wait per 4 words, behind one
+        barrier (a synchronised step); the image and output cross HBM
+        once."""
+        h, w, f = self.shape["h"], self.shape["w"], self.shape["fh"]
+        oh, ow = h - f + 1, w - f + 1
+        bh, bw = c["block_h"], c["block_w"]
+        ry, rx = c["row_chunk"], c["col_chunk"]
+        uh, uw, fs = c["unroll_fh"], c["unroll_fw"], c["filter_smem"]
+        blocks = (-(-oh // bh)) * (-(-ow // bw))
+        taps = blocks * bh * bw * float(f * f)
+        image = (ry + uh - 1) * (rx + uw - 1) / (ry * rx * uh * uw)
+        words = image + fs / (32.0 * rx)
+        rolled = (uh < f) | (uw < f)
+        per_tap = (np.where((c["acc_dtype"] == "bf16") & (rx == 1), 2.0, 1.0)
+                   + image / rx + fs / (4.0 * rx)
+                   + np.where(rolled & (fs == 0), 1.0 / (ry * rx), 0.0)
+                   + 4.0 / (ry * rx * uh * uw))
+        staged = blocks * (bh + f - 1) * kernel.pitch(bw, f) * 4.0
+        threads = kernel.threads(bh, bw, ry, rx)
+        cap = bound_regs(kernel.max_threads(ry, rx, c["acc_dtype"]))
+        return {"f32_inst": taps * per_tap + staged / 8.0,
+                "smem_words": taps * words, "ilp": ry * rx, "steps": 1,
+                "hbm_bytes": 4.0 * (h * w + oh * ow + f * f),
+                "l2_bytes": staged - 4.0 * h * w,
+                "smem_per_block": kernel.smem_bytes(bh, bw, f, fs),
+                "threads": threads,
+                "regs": np.minimum(cap, 24 + ry * rx + 2 * (rx + uw - 1)),
+                "blocks": blocks}
 
     # -- correctness hooks ------------------------------------------------ #
     def make_inputs(self, seed: int = 0, small: bool = True,

@@ -28,7 +28,8 @@ The shared-memory constraint (a ring of two steps of slots beside each
 channel's delay bounds in 232 448 B, ``kernel.stages``) replaces the
 reference's VMEM budget.  Blocks mask the ragged
 ends.  The constraints admit exactly the configs the compiled library
-launches.
+launches.  :meth:`DedispProblem.feature_math` gives the Hopper cost model
+the kernel's counts.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ import numpy as np
 import torch
 
 from ...core.space import Config, Constraint, Param, SearchSpace
-from ..common import KernelProblem, inputs_from_numpy
+from ..common import KernelProblem, inputs_from_numpy, per_value
 from . import kernel, ops, ref
 
 #: the JAX package's small correctness shape (its ``make_inputs(small=True)``:
@@ -145,9 +146,73 @@ class DedispProblem(KernelProblem):
     small_shape = SMALL_SHAPE
     _inputs: dict | None = None      # full-shape inputs, made at first use
 
+    def __init__(self, *args, **kwargs):
+        self._table: np.ndarray | None = None
+        self._reads: dict[int, float] = {}
+        super().__init__(*args, **kwargs)
+
     def build_space(self) -> SearchSpace:
         c, d, t_out, t_in, _ = dims(self.shape)
         return build_space(d, t_out, t_in, c)
+
+    def _delays(self) -> np.ndarray:
+        """The shape's delay table, as :func:`numpy_inputs` clips it."""
+        if self._table is None:
+            c, d, t_out, t_in, dm_step = dims(self.shape)
+            self._table = np.minimum(ref.make_delays(c, d, dm_step=dm_step),
+                                     t_in - t_out)
+        return self._table
+
+    def _reads_per_add(self, unroll_d: int) -> float:
+        """:func:`kernel.reads_per_add` on the shape's delay table."""
+        if unroll_d not in self._reads:
+            self._reads[unroll_d] = kernel.reads_per_add(self._delays(),
+                                                         unroll_d)
+        return self._reads[unroll_d]
+
+    def feature_math(self, c: dict) -> dict:
+        """The kernel's counts (``csrc/dedisp.cu``): every channel's add
+        into every (DM, sample) of every pass of every block (``layout``),
+        each an f32 add (3 more in bf16, rounding every sum) and the
+        window words :func:`kernel.reads_per_add` says it reads on the
+        shape's delay table; every block stages, pass by pass, each
+        channel into a slot of its ring of ``config_stages`` steps, its
+        thread 0 issuing each step's copies and every warp waiting on each
+        step's mbarrier, so the copies do not overlap the adds
+        (serialization 1), and each step is a synchronised step (passes x
+        ceil(C / block_c) a block).  A step's L2 traffic is counted as its
+        whole slots (``slot_floats``: the pass and T - t_out samples), not
+        the narrower window of this table's delays that the kernel copies:
+        a choice fitted to the card's rows, which the model ranks better
+        counted so (PERF.md, the cost model's findings).  x, the delays and the output cross HBM
+        once."""
+        ch, d, t_out, t_in, _ = dims(self.shape)
+        bd, bc, ud = c["block_d"], c["block_c"], c["unroll_d"]
+        tc = np.where(c["time_chunk"] == 0, t_out, c["time_chunk"])
+
+        def shape_of(bd_, ud_, tc_):
+            nx, rows, st = kernel.layout(bd_, ud_, tc_)
+            return nx, rows, st, kernel.slot_floats(nx, st, t_in - t_out)
+
+        nx, rows, st, slot = (per_value(lambda *a, i=i: shape_of(*a)[i],
+                                        bd, ud, tc) for i in range(4))
+        stages = per_value(lambda *a: kernel.config_stages(
+            dict(zip(("block_d", "block_c", "time_chunk", "unroll_d"), a)),
+            ch, t_out, t_in), bd, bc, c["time_chunk"], ud)
+        blocks = (-(-d // bd)) * (-(-t_out // tc))
+        passes = -(-tc // (nx * st))
+        adds = blocks * bd * passes * nx * st * float(ch)
+        reads = per_value(self._reads_per_add, ud)
+        return {"f32_inst": adds * (1.0 + reads + np.where(
+                    c["acc_dtype"] == "bf16", 3.0, 0.0)),
+                "smem_words": adds * reads, "ilp": ud * st,
+                "steps": passes * -(-ch // bc),
+                "hbm_bytes": 4.0 * (ch * t_in + ch * d + d * t_out),
+                "l2_bytes": 4.0 * (blocks * passes * ch * slot - ch * t_in),
+                "smem_per_block": stages * kernel.stage_bytes(bd, bc, slot)
+                + kernel.win_bytes(ch),
+                "threads": nx * rows, "regs": 32 + ud * st,
+                "blocks": blocks, "stages": stages, "serialization": 1.0}
 
     # -- correctness hooks ------------------------------------------------ #
     def make_inputs(self, seed: int = 0, small: bool = True,

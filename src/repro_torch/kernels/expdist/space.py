@@ -22,7 +22,8 @@ The space keeps the reference's parameters and their meanings
 
 Blocks mask the ragged ends, so no block needs to divide the point
 counts.  The constraints admit exactly the configs the compiled library
-launches.
+launches.  :meth:`ExpdistProblem.feature_math` gives the Hopper cost model
+the kernel's counts.
 """
 
 from __future__ import annotations
@@ -88,6 +89,36 @@ class ExpdistProblem(KernelProblem):
 
     def build_space(self) -> SearchSpace:
         return build_space(self.shape["kb"])
+
+    def feature_math(self, c: dict) -> dict:
+        """The kernel's counts (``csrc/expdist.cu``): every pair of every
+        block (the ragged ends computed too) at 10 f32 instructions and two
+        special-function results (the bound's count), 2 more for
+        ``exp_variant`` exp's scaling and range step, 6 for the bf16
+        roundings, 2 for the j point's shared loads (a broadcast of 3
+        words) and 3 of loop a chunk of ``unroll_j``; two launches (the
+        second adds the partials); a, b, sa, sb and the partials cross HBM
+        once, and each block streams its share of the j points through
+        L2, a tile of ``block_j`` at a time behind a barrier (a
+        synchronised step)."""
+        ka, kb = self.shape["ka"], self.shape["kb"]
+        bi, bj = c["block_i"], c["block_j"]
+        njb = np.where(c["use_column"] == 1, 1,
+                       np.maximum(1, np.minimum(c["n_y_blocks"],
+                                                cdiv(kb, bj))))
+        gi = cdiv(ka, bi)
+        pairs = gi * bi * (1.0 * cdiv(kb, bj) * bj)
+        per_pair = (12.0 + np.where(c["exp_variant"] == "exp", 2.0, 0.0)
+                    + np.where(c["compute_dtype"] == "bf16", 6.0, 0.0)
+                    + 3.0 / c["unroll_j"])
+        return {"f32_inst": pairs * per_pair, "sfu_ops": 2.0 * pairs,
+                "smem_words": pairs * 3.0 / 32.0,
+                "steps": -(-cdiv(kb, bj) // njb),
+                "hbm_bytes": 4.0 * (3 * ka + 3 * kb) + 8.0 * gi * njb,
+                "l2_bytes": 12.0 * gi * float(kb),
+                "smem_per_block": 12 * bj, "threads": bi,
+                "regs": 32 + 4 * c["unroll_j"], "blocks": gi * njb,
+                "launches": 2}
 
     # -- correctness hooks ------------------------------------------------ #
     def make_inputs(self, seed: int = 0, small: bool = True,

@@ -32,7 +32,8 @@ under 48 KB for every admitted tile.  The reference's ``halo_sane`` (2 tt
 <= block_h + 8) is dropped: the kernel launches those tiles, at the cost
 of halo work.  Blocks clamp their tiles into the domain, so no tile needs
 to divide it.  The constraints admit exactly the configs the compiled
-library can launch.
+library can launch.  :meth:`HotspotProblem.feature_math` gives the Hopper
+cost model the kernel's counts.
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ import numpy as np
 import torch
 
 from ...core.space import Config, Constraint, Param, SearchSpace
-from ..common import KernelProblem, inputs_from_numpy
+from ..common import KernelProblem, bound_regs, inputs_from_numpy
 from . import kernel, ops, ref
 
 #: the JAX package's small correctness shape (its ``make_inputs(small=True)``
@@ -100,6 +101,42 @@ class HotspotProblem(KernelProblem):
 
     def build_space(self) -> SearchSpace:
         return build_space()
+
+    def feature_math(self, c: dict) -> dict:
+        """The kernel's counts (``csrc/hotspot.cu``): ceil(n / tt)
+        launches over the padded domain, each block sweeping its whole
+        register block (warps x 8 rows x 32 C columns, halo and waste
+        included) every sweep, at 9 f32 instructions a cell (14 in bf16,
+        whose operations do not fuse) and one more where power is read
+        through L1 (``power_smem`` 0); a lane's edge exchange a sweep
+        (16 shuffles, 4 C shared-memory operations, its barrier, 3 of loop
+        a chunk of ``unroll_t``), each sweep a synchronised step;
+        temperature and power read and
+        temperature written through HBM every launch, the blocks' halos
+        again from L2."""
+        n = self.shape["n_total"]
+        hh, ww = self.shape["h"] + 2 * n, self.shape["w"] + 2 * n
+        bh, bw, tt = c["block_h"], c["block_w"], c["tt"]
+        cols, wy = kernel.cols(bw, tt), kernel.warps(bh, tt)
+        launches = -(-n // tt)
+        blocks = (-(-hh // bh)) * (-(-ww // bw))
+        lanes = blocks * wy * 32 * float(n)          # lane-sweeps
+        cells = lanes * kernel.ROWS * cols
+        per_cell = (np.where(c["acc_dtype"] == "bf16", 14.0, 9.0)
+                    + np.where(c["power_smem"] == 1, 0.0, 1.0))
+        per_lane = 16.0 + 4.0 * cols + 2.0 + 3.0 / c["unroll_t"]
+        most = np.select([cols == k for k in kernel.COLS],
+                         [kernel.MAX_THREADS[k] for k in kernel.COLS])
+        return {"f32_inst": cells * per_cell + lanes * per_lane,
+                "smem_words": lanes * 4.0 * cols,
+                "ilp": kernel.ROWS * cols, "steps": n,
+                "hbm_bytes": 12.0 * hh * ww * launches,
+                "l2_bytes": (8.0 * blocks * (bh + 2 * tt) * (bw + 2 * tt)
+                             - 8.0 * hh * ww) * launches,
+                # two parities of a top and a bottom edge row a warp
+                "smem_per_block": 2 * 2 * wy * 32 * cols * 4,
+                "threads": 32 * wy, "regs": bound_regs(most),
+                "blocks": blocks, "launches": launches}
 
     # -- correctness hooks ------------------------------------------------ #
     def make_inputs(self, seed: int = 0, small: bool = True,

@@ -8,6 +8,8 @@ accumulator's stored dtype and B's layout.  Its
 constraints admit exactly the configs the compiled libraries can launch:
 every admitted config launches, so a failed launch is a fault in the space
 or the kernel, never a silently invalid trial.
+:meth:`GemmProblem.feature_math` gives the Hopper cost model the kernel's
+counts.
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ import numpy as np
 import torch
 
 from ...core.space import Config, Constraint, Param, SearchSpace
-from ..common import SMEM_PER_BLOCK, KernelProblem, inputs_from_numpy
+from ..common import (SMEM_PER_BLOCK, KernelProblem, bound_regs, cdiv,
+                      inputs_from_numpy)
 from . import kernel, ops, ref
 
 #: the JAX package's small correctness shape (its ``make_inputs(small=True)``)
@@ -100,6 +103,49 @@ class GemmProblem(KernelProblem):
 
     def build_space(self) -> SearchSpace:
         return build_space(self.shape["m"], self.shape["n"], self.shape["k"])
+
+    def feature_math(self, c: dict) -> dict:
+        """The kernel's counts (``csrc/gemm.cu``): 2 m n k FLOPs on the
+        tensor cores in m64 x N x k16 wgmmas (N the block's columns a
+        consumer warpgroup takes), A's and B's smem words each wgmma reads,
+        the epilogue's two f32 instructions an output and, with a bf16
+        accumulator, three a stored accumulator a k block (its rounding
+        and the wait before it); A, B, C and the output once from HBM, A
+        and B again from L2 for every other block column and row; with
+        split-k the (split_k, M, N) partials and ``combine_split``'s
+        PyTorch ops (2 split_k + 2 launches, each over M N values).  A
+        block's registers are its launch bound's: the space keeps the
+        accumulators within ``kernel.MAX_ACC_PER_THREAD``, so none
+        spill."""
+        m, n, k = self.shape["m"], self.shape["n"], self.shape["k"]
+        bm, bn, bk = c["block_m"], c["block_n"], c["block_k"]
+        sk, warps = c["split_k"], c["warps"]
+        wg = warps // 4
+        # two consumer warpgroups split block_m >= 128 by rows, else
+        # block_n by columns
+        n_issue = np.where((wg == 2) & (bm < 128), bn // 2, bn)
+        flops = 2.0 * m * n * k
+        wgmmas = flops / (2.0 * 64 * n_issue * 16)
+        gm, gn = cdiv(m, bm), cdiv(n, bn)
+        bf16_acc = c["acc_dtype"] == "bf16"
+        f32 = 2.0 * m * n + np.where(bf16_acc, 3.0 * m * n * (k // bk), 0.0)
+        split = sk > 1
+        # A and B once; C read and the output written (4 B an output), or
+        # the bf16 partials written and combined: each part read as bf16
+        # and turned f32 (6 B), added into the f32 sum (12 B), then beta C
+        # and the cast (24 B)
+        hbm = 2.0 * (m * k + k * n) + np.where(
+            split, 20.0 * m * n * sk + 24.0 * m * n, 4.0 * m * n)
+        threads = 128 * (wg + 1)
+        return {"tc_flops": flops, "tile_m": 64, "tile_n": n_issue,
+                "tile_k": 16, "f32_inst": f32,
+                "smem_words": wgmmas * (64 * 16 + n_issue * 16) / 2.0,
+                "hbm_bytes": hbm,
+                "l2_bytes": 2.0 * m * k * (gn - 1) + 2.0 * k * n * (gm - 1),
+                "smem_per_block": kernel.smem_bytes(bm, bn, bk, c["stages"]),
+                "threads": threads, "regs": bound_regs(threads),
+                "blocks": gm * gn * sk, "stages": c["stages"],
+                "launches": np.where(split, 2 * sk + 3, 1)}
 
     # -- correctness hooks ------------------------------------------------ #
     def make_inputs(self, seed: int = 0, small: bool = True,

@@ -20,6 +20,8 @@ The space keeps the reference's parameters and their meanings
 
 The kernel does not mask a ragged end, so both blocks divide N.  Its
 constraints admit exactly the configs the compiled library can launch.
+:meth:`NbodyProblem.feature_math` gives the Hopper cost model the kernel's
+counts.
 """
 
 from __future__ import annotations
@@ -79,6 +81,31 @@ class NbodyProblem(KernelProblem):
 
     def build_space(self) -> SearchSpace:
         return build_space(self.shape["n"])
+
+    def feature_math(self, c: dict) -> dict:
+        """The kernel's counts (``csrc/nbody.cu``): N^2 pairs, each 17 f32
+        instructions and an rsqrt with ``rsqrt_method`` approx (the
+        bound's count), 10 more and a second special-function result for
+        the exact path's square root and division, 12 more for the bf16
+        roundings, the j body's shared load, and 7 of loop a chunk of
+        ``unroll_j``; the body is read from shared memory by a whole warp
+        at once (a broadcast); every block stages all N bodies through L2
+        (3 instructions a body), a tile of ``block_j`` at a time behind a
+        barrier (a synchronised step); the bodies and the output cross
+        HBM once."""
+        n = self.shape["n"]
+        bi, bj, uj = c["block_i"], c["block_j"], c["unroll_j"]
+        pairs = float(n) * n
+        exact = c["rsqrt_method"] == "exact"
+        per_pair = (18.0 + np.where(exact, 10.0, 0.0)
+                    + np.where(c["compute_dtype"] == "bf16", 12.0, 0.0)
+                    + 7.0 / uj + 3.0 / bi)
+        return {"f32_inst": pairs * per_pair,
+                "sfu_ops": pairs * np.where(exact, 2.0, 1.0),
+                "smem_words": pairs * 4.0 / 32.0, "steps": n // bj,
+                "hbm_bytes": 28.0 * n, "l2_bytes": 16.0 * n * (n // bi - 1),
+                "smem_per_block": 16 * bj, "threads": bi,
+                "regs": 32 + 2 * uj, "blocks": n // bi}
 
     # -- correctness hooks ------------------------------------------------ #
     def make_inputs(self, seed: int = 0, small: bool = True,

@@ -21,7 +21,8 @@ The space keeps the reference's parameters and their meanings
 The vertices sit in 32 KB of ``__constant__`` memory (at most 4096) and
 blocks mask the ragged end, so no config is ruled out by the shape but the
 reference's own ``unroll_v <= V``: its constraints admit exactly the
-configs the compiled libraries can launch.
+configs the compiled libraries can launch.  :meth:`PnpolyProblem.feature_math`
+gives the Hopper cost model the kernel's counts.
 """
 
 from __future__ import annotations
@@ -57,6 +58,16 @@ def build_space(n: int, v: int) -> SearchSpace:
     return SearchSpace(params, constraints, name="pnpoly_h100")
 
 
+#: f32 instructions a point and edge of each ``between_method``
+#: (``csrc/pnpoly.cu`` ``between``: two compares and their xor; two
+#: differences, their product and four tests; two compares, two
+#: conversions and integer subtract, abs and compare; min, max and two
+#: compares and their and) and ``use_method`` (a predicate toggle, an
+#: add, a multiply)
+BETWEEN_INST = (3.0, 9.0, 7.0, 5.0)
+USE_INST = (2.0, 1.0, 1.0)
+
+
 def numpy_inputs(seed: int, n: int, v: int) -> dict:
     """An irregular star polygon and ``n`` points, drawn with numpy in f32
     as the JAX package's ``make_inputs`` draws them with ``jax.random``:
@@ -85,6 +96,34 @@ class PnpolyProblem(KernelProblem):
 
     def build_space(self) -> SearchSpace:
         return build_space(self.shape["n"], self.shape["v"])
+
+    def feature_math(self, c: dict) -> dict:
+        """The kernel's counts (``csrc/pnpoly.cu``): for every point of
+        every block (the ragged end computed too) and edge, the crossing
+        (three rounded operations), its compare, the between test and the
+        parity update (:data:`BETWEEN_INST`, :data:`USE_INST`); for every
+        thread and edge, shared by its ``points_per_thread`` points, four
+        constant loads and the next vertex's index (7), the slope (a
+        broadcast shared load with ``precompute_slope``, else two
+        differences, a select and a division with its reciprocal, 12 and
+        a special-function result) and 3 of loop a chunk of ``unroll_v``;
+        with ``precompute_slope`` the slopes' barrier a synchronised step;
+        the points and flags cross HBM once."""
+        n, v = self.shape["n"], self.shape["v"]
+        bp, pre = c["block_points"], c["precompute_slope"]
+        t = np.minimum(bp, kernel.MAX_THREADS)
+        ppt = bp // t
+        blocks = -(-n // bp)
+        edges = blocks * t * float(v)          # thread-edges
+        per_point = (4.0 + np.asarray(BETWEEN_INST)[c["between_method"]]
+                     + np.asarray(USE_INST)[c["use_method"]])
+        per_edge = 7.0 + np.where(pre == 1, 1.0, 12.0) + 3.0 / c["unroll_v"]
+        return {"f32_inst": edges * (ppt * per_point + per_edge),
+                "sfu_ops": np.where(pre == 1, blocks * float(v), edges),
+                "smem_words": np.where(pre == 1, edges / 32.0, 0.0),
+                "ilp": ppt, "steps": pre,
+                "hbm_bytes": 12.0 * n, "smem_per_block": 4 * v * pre,
+                "threads": t, "regs": 24 + 6 * ppt, "blocks": blocks}
 
     # -- correctness hooks ------------------------------------------------ #
     def make_inputs(self, seed: int = 0, small: bool = True,

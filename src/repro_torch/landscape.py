@@ -1,7 +1,7 @@
 """The paper's landscape analyses on a table the card measured.
 
     PYTHONPATH=src python -m repro_torch.landscape [--problem NAME]
-        [--samples N] [--small]
+        [--samples N] [--small] [--arch ID] [--portability]
 
 ``NAME`` is a problem the port measures whole (``pnpoly_h100``,
 ``nbody_h100``, ``conv2d_h100`` or ``flash_attention_h100``, the default)
@@ -27,10 +27,21 @@ or one of the paper's sampled spaces (``hotspot_h100``, ``dedisp_h100``,
    estimates as the constrained count times its share of valid trials.
 
 Runs on the card; ``--device cpu`` (with ``--small``) times the plain
-PyTorch version on the host instead, which is what the tests do.  Port of
-the JAX package's ``benchmarks/fig2_convergence.py``, ``fig3_centrality.py``,
-``fig4_speedup.py``, ``fig6_importance.py`` and ``table8_spacestats.py`` for
-one problem and one arch.
+PyTorch version on the host instead, which is what the tests do.
+
+``--arch`` names the arch whose objectives make the table: by default the
+device's own (measured), or an id of the Hopper cost model
+(``core.costmodel.ARCH_NAMES``: ``h100sxm``, ``h100pcie``), whose table is
+host arithmetic at the full shape in seconds and needs no card
+(``--device cpu --arch h100sxm``); nothing is timed then.  With a model id
+it also prints Fig 5, the portability matrix over the model's ids on the
+same configs; ``--portability`` adds the table measured on the device over
+those configs as one more arch (with the card: ``h100``), and with the
+measured arch it adds the model's ids.
+
+Port of the JAX package's ``benchmarks/fig2_convergence.py``,
+``fig3_centrality.py``, ``fig4_speedup.py``, ``fig5_portability.py``,
+``fig6_importance.py`` and ``table8_spacestats.py`` for one problem.
 """
 
 from __future__ import annotations
@@ -43,8 +54,9 @@ import numpy as np
 
 from .core.analysis import (centrality_curve, evals_to_reach,
                             feature_importance, important_params,
-                            median_curve, reduced_space, reduced_stats,
-                            space_stats, speedup_over_median)
+                            median_curve, portability_matrix, reduced_space,
+                            reduced_stats, space_stats, speedup_over_median)
+from .core.costmodel import ARCH_NAMES
 from .core.problem import FunctionProblem
 from .core.results import ResultsDB, ResultTable
 from .core.tuners import GridSearch, run_tuner
@@ -103,15 +115,34 @@ def analyse(prob, table: ResultTable, trials) -> dict:
             "pfi_sum": imp["pfi_sum"], "table8": row, "best_config": best}
 
 
+def fig5(prob, trials, tables: dict) -> dict:
+    """Fig 5 over ``tables`` (arch -> table) plus, for each of the model's
+    ids not among them, its table over the configs of ``trials``."""
+    rows = [prob.space.flat_index(t.config) for t in trials]
+    protocol = next(iter(tables.values())).protocol
+    archs = [a for a in ARCH_NAMES if a not in tables]
+    for a, col in zip(archs, prob.trials_for_rows_archs(rows, archs)
+                      if archs else []):
+        tables[a] = ResultTable.from_trials(prob, a, col, protocol)
+    out = portability_matrix(tables)
+    print(f"Fig 5  portability (row: whose optimum, column: deployed on; "
+          f"{len(rows)} configs)")
+    for a, row in zip(out["archs"], out["matrix"]):
+        print(f"  {a:9s} " + " ".join(f"{v:.4f}" for v in row))
+    return out
+
+
 def main(problem: str = "flash_attention_h100", device=None,
          small: bool = False, results_dir=None,
-         samples: int | None = None) -> dict:
-    """Measure ``problem``'s space and print the five results; returns them
+         samples: int | None = None, arch: str | None = None,
+         portability: bool = False) -> dict:
+    """Build ``problem``'s table and print the five results; returns them
     with the table and the trials.  ``device`` defaults to ``"cuda"``;
-    ``small`` measures the problem's small test shape; ``samples`` (default
-    ``SAMPLE_N``) is the most configs a sampled problem measures: a space
-    that admits more is sampled.  A problem in ``EXHAUSTIVE`` is always
-    measured whole."""
+    ``small`` takes the problem's small test shape; ``samples`` (default
+    ``SAMPLE_N``) is the most configs a sampled problem takes: a space that
+    admits more is sampled.  A problem in ``EXHAUSTIVE`` is always taken
+    whole.  ``arch`` (default: the device's, measured) may be an id of the
+    cost model; then, or with ``portability``, Fig 5 is printed too."""
     if problem not in EXHAUSTIVE + SAMPLED:
         raise ValueError(f"{problem!r} is neither measured whole nor "
                          f"sampled; the port measures {EXHAUSTIVE} whole and "
@@ -123,24 +154,35 @@ def main(problem: str = "flash_attention_h100", device=None,
         samples = SAMPLE_N
     cls = BENCHMARKS[problem]
     prob = cls(shape=cls.small_shape if small else None, device=device)
+    arch = prob.arch if arch is None else arch
+    model = prob.analytical(arch)          # raises for a foreign id
     n = prob.space.compiled().n_valid
+    how = "the Hopper cost model" if model else "measured"
     print(f"problem: {prob.name} {prob.shape} on {prob.device} (arch "
-          f"{prob.arch})  |space| = {prob.space.cardinality:,}, {n} admitted")
+          f"{arch}, {how})  |space| = {prob.space.cardinality:,}, {n} "
+          f"admitted")
 
     t0 = time.perf_counter()
     if samples is not None and n > samples:
         # already in random order: the card's drift is tied to no parameter
-        trials = prob.sampled(samples, seed=0, arch=prob.arch)
+        trials = prob.sampled(samples, seed=0, arch=arch)
         protocol = f"sampled:{samples}:0"
+    elif model:
+        trials = prob.exhaustive(arch)
+        protocol = "exhaustive"
     else:
         trials = run_tuner(GridSearch(prob.space, seed=0), prob, budget=n,
-                           arch=prob.arch).trials
+                           arch=arch).trials
         protocol = "exhaustive"
     seconds = time.perf_counter() - t0
     invalid = sum(not t.ok for t in trials)
-    table = ResultTable.from_trials(prob, prob.arch, trials, protocol)
-    print(f"measured {len(trials)} configs ({protocol}) in {seconds:.2f} s; "
-          f"{invalid} invalid")
+    table = ResultTable.from_trials(prob, arch, trials, protocol)
+    if model:
+        print(f"modelled {len(trials)} configs ({protocol}); {invalid} "
+              f"cannot run")
+    else:
+        print(f"measured {len(trials)} configs ({protocol}) in "
+              f"{seconds:.2f} s; {invalid} invalid")
     if results_dir is not None:
         ResultsDB(results_dir).put(table)
 
@@ -161,14 +203,25 @@ def main(problem: str = "flash_attention_h100", device=None,
           + ", ".join(f"{k} {v:.4f}" for k, v in out["pfi"].items()))
     row = out["table8"]
     print(f"Table VIII  cardinality {row['cardinality']}, constrained "
-          f"{row['constrained']}, valid {row['valid'][prob.arch]}"
+          f"{row['constrained']}, valid {row['valid'][arch]}"
           f"{'' if row['exact'] else ' (estimated from the sample)'}, reduced "
           f"{row['reduced']}, reduce-constrained "
           f"{row['reduce_constrained']} (kept: "
           f"{', '.join(row['kept_params'])})")
-    print(f"analyses took {analyse_s:.2f} s")
+    if not model:
+        print(f"analyses took {analyse_s:.2f} s")
+    matrix = None
+    if model or portability:
+        tables = {arch: table}
+        if model and portability:
+            cfgs = [t.config for t in trials]
+            tables[prob.arch] = ResultTable.from_trials(
+                prob, prob.arch, prob.evaluate_many(cfgs, prob.arch),
+                protocol)
+        matrix = fig5(prob, trials, tables)
     out.update(problem=prob, table=table, trials=trials, invalid=invalid,
-               seconds=seconds, analyse_seconds=analyse_s)
+               seconds=seconds, analyse_seconds=analyse_s, arch=arch,
+               portability=matrix)
     return out
 
 
@@ -184,9 +237,17 @@ def _cli(argv=None) -> None:
     ap.add_argument("--small", action="store_true",
                     help="measure the problem's small test shape")
     ap.add_argument("--results-dir", default=None)
+    ap.add_argument("--arch", default=None,
+                    help=f"the arch of the table: the device's (measured, "
+                         f"the default) or one of the cost model's "
+                         f"{ARCH_NAMES}")
+    ap.add_argument("--portability", action="store_true",
+                    help="Fig 5 with the device's measured table and the "
+                         "model's over the same configs")
     a = ap.parse_args(argv)
     main(problem=a.problem, device=a.device, small=a.small,
-         results_dir=a.results_dir, samples=a.samples)
+         results_dir=a.results_dir, samples=a.samples, arch=a.arch,
+         portability=a.portability)
 
 
 if __name__ == "__main__":
