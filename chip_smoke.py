@@ -104,6 +104,23 @@ Phases, each timed:
                over (h100, h100sxm, h100pcie), for the five problems
                measured whole.  A config the model cannot run, or a pick
                that fails, fails the run.
+8. orchestrator — the session layer, each step a run of its entry point
+               ``python -m repro_torch.orchestrator`` with a temporary store
+               and ``--trace`` (``orchestrator_check``): a GEMM random
+               search (seed 0, budget 60, 4 workers asked) stopped at the
+               first batch boundary past 30 and resumed (interrupted, then
+               done; a journal line a trial; the resumed run measures only
+               what the journal lacks; one measuring process on the one
+               card; the configs the ``main`` phase's random search asked,
+               in order, and their medians within 5 % of that phase's);
+               flash attention's 72 admitted configs by grid search across
+               two calls (a published table of all 72, none invalid, its
+               best within 3 % of the landscape's); a campaign of random
+               search and GA over ``h100``, ``h100sxm`` and ``h100pcie``
+               (six sessions done, measured trials only under ``h100``,
+               each row they asked measured once).  Its kernel launches
+               happen in the measuring processes, whose spans carry them
+               back (``orchestrator_launches`` in the ``kernels`` line).
 
 Prints the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  A kernel's ``launches`` counts its wrapper's calls on its path;
@@ -480,6 +497,263 @@ def model_check(paths: dict, gemm_trials, defaults: dict, default_s: dict,
         except Exception as e:
             failures.append(f"costmodel {name} Fig 5: {e!r}")
     return {"problems": cm, "portability": fig5}
+
+
+def orchestrator_check(gemm, attention, gemm_random,
+                       attention_best_s: float, budget: int,
+                       failures: list[str]) -> dict:
+    """The session layer on the card, each step through the real entry
+    point, ``python -m repro_torch.orchestrator``, with a temporary store:
+
+    1. a GEMM random search at 4096^3 stopped at the first batch boundary
+       past half its budget and resumed: interrupted then done, one
+       journal line a trial, the resumed process measuring only the
+       configs the journal lacked, one measuring process on the one card,
+       the configs in the order the ``main`` phase's random search (same
+       seed) asked them and their medians beside that phase's;
+    2. flash attention's whole space by grid search across two calls: the
+       published table holds every admitted config, none invalid, and its
+       best lies near the ``attention`` phase's landscape best;
+    3. a campaign over the card's id and the cost model's two: measured
+       trials only in the ``h100`` sessions, none in the model's, and each
+       row the ``h100`` sessions asked measured once.
+
+    ``gemm`` and ``attention`` are the full-shape problems the earlier
+    phases built, with the CLI's defaults: each measured config launches
+    its kernel ``warmup + repeats`` times.  Returns what it measured;
+    kernel launches are read from the measuring processes' spans
+    (``pool.chunk``/``pool.retry``), which the trace carries back."""
+    import os
+    import tempfile
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    out: dict = {"steps": {}}
+    gemm_space, attention_space = gemm.space, attention.space
+    g_per = gemm.warmup + gemm.repeats
+    a_per = attention.warmup + attention.repeats
+
+    def cli(*argv) -> tuple[str, float]:
+        t0 = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, "-m", "repro_torch.orchestrator", *argv],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=900)
+        dt = time.perf_counter() - t0
+        if p.returncode != 0:
+            raise SystemExit(f"chip_smoke: orchestrator {' '.join(argv)} "
+                             f"exited {p.returncode}:\n{p.stdout[-3000:]}\n"
+                             f"{p.stderr[-6000:]}")
+        for line in p.stderr.splitlines():
+            if line.startswith("worker pool:"):
+                print(f"  {argv[0]}: {line}")
+        return p.stdout, dt
+
+    def spans(path: Path) -> list[dict]:
+        return [r for r in map(json.loads, path.read_text().splitlines())
+                if "name" in r]
+
+    def measured(sp: list[dict]) -> list[dict]:
+        return [r for r in sp if r["name"] == "kernel.measure"]
+
+    def kernel_s(sp: list[dict]) -> float:
+        """Seconds the measuring processes spent building and timing
+        configs; the rest of a call is process start and set-up."""
+        return sum(r["dur"] for r in sp
+                   if r["name"] in ("kernel.build", "kernel.measure")) / 1e6
+
+    def launched(sp: list[dict]) -> dict[str, int]:
+        tot: dict[str, int] = {}
+        for r in sp:
+            if r["name"] in ("pool.chunk", "pool.retry"):
+                for k, n in r.get("args", {}).get("launches", {}).items():
+                    tot[k] = tot.get(k, 0) + n
+        return tot
+
+    def status(store: Path) -> dict[str, dict]:
+        text, _ = cli("status", "--store", str(store), "--json")
+        return {r["session"]: r for r in map(json.loads, text.splitlines())}
+
+    def journal(store: Path, sid: str) -> list[dict]:
+        lines = (store / sid / "trials.jsonl").read_text().splitlines()
+        return [json.loads(line) for line in lines if line.strip()]
+
+    def session_id(text: str) -> str:
+        return next(line.split()[1] for line in text.splitlines()
+                    if line.startswith("session "))
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_orch") as tmp:
+        tmp = Path(tmp)
+        store = tmp / "store"
+        # 1. GEMM: stopped, resumed
+        b1 = min(60, budget)
+        t0 = time.perf_counter()
+        text, s_a = cli("submit", "--problem", "gemm_h100", "--tuner",
+                        "random", "--seed", "0", "--budget", str(b1),
+                        "--workers", "4", "--stop-after", str(b1 // 2),
+                        "--store", str(store), "--trace",
+                        str(tmp / "t1.jsonl"))
+        sid = session_id(text)
+        st1 = status(store)[sid]
+        n1 = len(journal(store, sid))
+        text, s_b = cli("resume", sid, "--store", str(store), "--trace",
+                        str(tmp / "t2.jsonl"))
+        st2 = status(store)[sid]
+        recs = journal(store, sid)
+        step1_s = time.perf_counter() - t0
+        sp1, sp2 = spans(tmp / "t1.jsonl"), spans(tmp / "t2.jsonl")
+        m1, m2 = measured(sp1), measured(sp2)
+        pids = [{r["args"]["pid"] for r in m} for m in (m1, m2)]
+        devices = {r.get("i", {}).get("device") for r in recs}
+        cfgs = [gemm_space.from_flat_index(r["k"]) for r in recs]
+        main_cfgs = [t.config for t in gemm_random[:b1]]
+        main_s = {json.dumps(t.config, sort_keys=True): t.objective
+                  for t in gemm_random}
+        devs = [abs(r["o"] / main_s[key] - 1.0) for r, c in zip(recs, cfgs)
+                if (key := json.dumps(c, sort_keys=True)) in main_s] or [1.0]
+        per_cfg_ms = (s_a + s_b) / b1 * 1e3
+        g_launch = launched(sp1 + sp2)
+        print(f"  gemm session {sid}: {st1['status']} "
+              f"{st1['evaluated']}/{st1['budget']} ({n1} journal lines), "
+              f"then {st2['status']} {st2['evaluated']}/{st2['budget']} "
+              f"({len(recs)} lines); configs measured {len(m1)} + {len(m2)}"
+              f"; measuring pids {[sorted(p) for p in pids]}, devices "
+              f"{sorted(devices, key=str)}; gemm launches {g_launch}")
+        k_s = kernel_s(sp1) + kernel_s(sp2)
+        print(f"  gemm session medians against the main phase's: median "
+              f"|ratio - 1| {statistics.median(devs):.4f}, max "
+              f"{max(devs):.4f}; submit {s_a:.1f} s + resume {s_b:.1f} s "
+              f"= {per_cfg_ms:.1f} ms of host time a measured config, "
+              f"spawns included, of which {k_s:.2f} s building and timing "
+              f"configs")
+        checks = [
+            (st1["status"] == "interrupted"
+             and b1 // 2 <= st1["evaluated"] < b1 and n1 == st1["evaluated"],
+             f"stopped session: {st1}, {n1} journal lines"),
+            (st2["status"] == "done" and st2["evaluated"] == b1
+             and len(recs) == b1, f"resumed session: {st2}, "
+             f"{len(recs)} journal lines"),
+            (len(m1) == st1["evaluated"] and len(m2) == b1 - st1["evaluated"],
+             f"configs measured {len(m1)} + {len(m2)}, journal "
+             f"{st1['evaluated']} + {b1 - st1['evaluated']}"),
+            (all(len(p) == 1 for p in pids) and devices == {0},
+             f"measuring processes {pids}, devices {devices}"),
+            (cfgs == main_cfgs, "the session's configs are not the main "
+             "phase's random search's"),
+            (statistics.median(devs) <= 0.05,
+             f"session medians off the main phase's by "
+             f"{statistics.median(devs):.4f} (median) > 0.05"),
+            (g_launch == {"gemm": b1 * g_per},
+             f"gemm launches {g_launch}, not {b1} configs x {g_per}")]
+        failures.extend(f"orchestrator step 1: {msg}"
+                        for ok, msg in checks if not ok)
+        out["steps"]["gemm_session"] = {
+            "seconds": step1_s, "submit_s": s_a, "resume_s": s_b,
+            "stopped_at": st1["evaluated"], "measured": [len(m1), len(m2)],
+            "median_dev": statistics.median(devs), "max_dev": max(devs),
+            "host_ms_per_config": per_cfg_ms, "kernel_s": k_s,
+            "launches": g_launch}
+
+        # 2. attention's whole space across two calls
+        n_valid = len(attention_space.compiled().valid_rows)
+        t0 = time.perf_counter()
+        text, _ = cli("submit", "--problem", "flash_attention_h100",
+                      "--tuner", "grid", "--budget", str(n_valid),
+                      "--stop-after", str(n_valid // 2), "--store",
+                      str(store), "--trace", str(tmp / "t3.jsonl"))
+        sid2 = session_id(text)
+        st3 = status(store)[sid2]
+        cli("resume", sid2, "--store", str(store), "--trace",
+            str(tmp / "t4.jsonl"))
+        step2_s = time.perf_counter() - t0
+        from repro_torch.core.results import ResultsDB
+        table = ResultsDB(store / "tables").get(
+            "flash_attention_h100", "h100", f"session_{sid2}")
+        import math
+        finite = [o for o in table.objectives if math.isfinite(o)]
+        t_best = min(finite) if finite else math.inf
+        sp34 = spans(tmp / "t3.jsonl") + spans(tmp / "t4.jsonl")
+        a_launch = launched(sp34)
+        print(f"  attention grid {sid2}: stopped at {st3['evaluated']}, "
+              f"table {len(table.configs)} rows ({len(set(table.configs))} "
+              f"distinct, {len(finite)} valid of {n_valid} admitted), best "
+              f"{t_best * 1e3:.4f} ms against the landscape's "
+              f"{attention_best_s * 1e3:.4f} ms; {step2_s:.1f} s, of which "
+              f"{kernel_s(sp34):.2f} s building and timing configs")
+        checks = [
+            (st3["status"] == "interrupted", f"attention stop: {st3}"),
+            (len(table.configs) == n_valid == len(set(table.configs))
+             == len(finite), f"attention table: {len(table.configs)} rows, "
+             f"{len(finite)} valid, {n_valid} admitted"),
+            (abs(t_best / attention_best_s - 1.0) <= 0.03,
+             f"attention table best {t_best * 1e3:.4f} ms against the "
+             f"landscape's {attention_best_s * 1e3:.4f} ms"),
+            (a_launch == {"flash_attention": n_valid * a_per},
+             f"attention launches {a_launch}, not {n_valid} configs x "
+             f"{a_per}")]
+        failures.extend(f"orchestrator step 2: {msg}"
+                        for ok, msg in checks if not ok)
+        out["steps"]["attention_grid"] = {
+            "seconds": step2_s, "stopped_at": st3["evaluated"],
+            "rows": len(table.configs), "valid": len(finite),
+            "best_ms": t_best * 1e3,
+            "landscape_best_ms": attention_best_s * 1e3,
+            "kernel_s": kernel_s(sp34), "launches": a_launch}
+
+        # 3. a campaign over the card's id and the cost model's
+        cstore = tmp / "campaign"
+        t0 = time.perf_counter()
+        cli("campaign", "--problems", "flash_attention_h100", "--tuners",
+            "random,genetic", "--archs", "h100,h100sxm,h100pcie",
+            "--seeds", "0", "--budget", "40", "--workers", "1",
+            "--store", str(cstore),
+            "--trace", str(tmp / "t5.jsonl"))
+        step3_s = time.perf_counter() - t0
+        sts = status(cstore)
+        sp5 = spans(tmp / "t5.jsonl")
+        c_launch = launched(sp5)
+        asked: set[int] = set()
+        bad: list[str] = []
+        for s, row in sts.items():
+            spec_arch = json.loads((cstore / s / "meta.json").read_text()
+                                   )["spec"]["arch"]
+            recs = journal(cstore, s)
+            with_info = [r for r in recs
+                         if {"median_s", "repeats"} <= set(r.get("i", {}))]
+            if spec_arch == "h100":
+                asked |= {r["k"] for r in recs}
+                if len(with_info) != len(recs):
+                    bad.append(f"{s}: {len(recs) - len(with_info)} trials "
+                               f"without measured info")
+            elif with_info:
+                bad.append(f"{s}: {len(with_info)} model trials carry "
+                           f"measured info")
+        n_meas = len(measured(sp5))
+        print(f"  campaign: {len(sts)} sessions "
+              f"{sorted(r['status'] for r in sts.values())}; "
+              f"{n_meas} configs measured for {len(asked)} distinct rows "
+              f"the h100 sessions asked; {step3_s:.1f} s, of which "
+              f"{kernel_s(sp5):.2f} s building and timing configs; launches "
+              f"{c_launch}")
+        checks = [
+            (len(sts) == 6 and all(r["status"] == "done"
+                                   for r in sts.values()),
+             f"campaign sessions {[(s, r['status']) for s, r in sts.items()]}"),
+            (not bad, "; ".join(bad)),
+            (n_meas == len(asked), f"campaign measured {n_meas} configs for "
+             f"{len(asked)} distinct h100 rows"),
+            (c_launch == {"flash_attention": len(asked) * a_per},
+             f"campaign launches {c_launch}, not {len(asked)} rows x "
+             f"{a_per}")]
+        failures.extend(f"orchestrator step 3: {msg}"
+                        for ok, msg in checks if not ok)
+        out["steps"]["campaign"] = {
+            "seconds": step3_s, "sessions": len(sts), "measured": n_meas,
+            "distinct_h100_rows": len(asked), "kernel_s": kernel_s(sp5),
+            "launches": c_launch}
+    out["launches"] = {k: g_launch.get(k, 0) + a_launch.get(k, 0)
+                       + c_launch.get(k, 0)
+                       for k in set(g_launch) | set(a_launch) | set(c_launch)}
+    return out
 
 
 def main(argv=None) -> int:
@@ -1105,6 +1379,7 @@ def main(argv=None) -> int:
         record["trials"] = [{"config": t.config, "info": t.info}
                             for t in trials]
         gemm_trials = trials
+        gemm_random = res["runs"]["RandomSearch"].trials
 
     def run_path(problem: str, name: str, prob, winner_parity,
                  samples: int | None = None) -> dict:
@@ -1592,6 +1867,15 @@ def main(argv=None) -> int:
              "expdist": eops.DEFAULT_CONFIG, "dedisp": dops.DEFAULT_CONFIG},
             default_s, failures)
 
+    with phase("orchestrator"):
+        t0 = time.perf_counter()
+        orch = orchestrator_check(full, ffull, gemm_random,
+                                  table_best_s, args.budget, failures)
+        orch["seconds"] = time.perf_counter() - t0
+        record["orchestrator"] = orch
+        print(f"  orchestrator phase {orch['seconds']:.1f} s; kernel "
+              f"launches in its measuring processes {orch['launches']}")
+
     lines = [
         {"name": "gemm", "route": "cuda",
          "source": "src/repro_torch/csrc/gemm.cu",
@@ -1604,6 +1888,7 @@ def main(argv=None) -> int:
          "rel_l2": worst["gemm"]["rel_l2"], "shape": [m, n, k],
          "default_config": ops.DEFAULT_CONFIG,
          "tuned_ms": t_best * 1e3, "tuned_config": best.config,
+         "orchestrator_launches": orch["launches"].get("gemm", 0),
          "build_s": build_s},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -1617,7 +1902,9 @@ def main(argv=None) -> int:
          "shape": [hq, hkv, tq, tk, d],
          "default_config": fops.DEFAULT_CONFIG,
          "tuned_ms": at_best * 1e3, "tuned_config": abest.config,
-         "exhaustive_best_ms": table_best_s * 1e3, "build_s": build_s},
+         "exhaustive_best_ms": table_best_s * 1e3,
+         "orchestrator_launches": orch["launches"].get("flash_attention", 0),
+         "build_s": build_s},
     ] + f32_lines
     record["kernels"] = lines
     record["speedup_over_median"] = res["speedup"]

@@ -17,7 +17,6 @@ import statistics
 import time
 from typing import Any, Callable, Sequence
 
-from ..device import arch_id, resolve
 from ..telemetry.trace import span
 from .costmodel import (ARCH_NAMES, GPU_GENERATIONS, FeatureBatch,
                         KernelFeatures, estimate_seconds,
@@ -415,9 +414,17 @@ class MeasuredProblem(TunableProblem):
         self.name = name
         self.repeats = repeats
         self.warmup = warmup
+        from ..device import arch_id, resolve   # torch: only when measuring
         self.device = resolve(device)
         self.arch = arch_id(self.device)
         self._flush = None
+
+    def __getstate__(self) -> dict:
+        # the L2 flush buffer lives on this process's device: a process
+        # the problem is pickled into makes its own
+        state = self.__dict__.copy()
+        state["_flush"] = None
+        return state
 
     def _seconds(self, fn: Callable[[], Any]) -> list[float]:
         if self.device.type != "cuda":

@@ -32,7 +32,29 @@ EXHAUSTIVE = ("pnpoly_h100", "nbody_h100", "conv2d_h100",
 SAMPLED = ("hotspot_h100", "dedisp_h100", "expdist_h100")
 SAMPLE_N = 10_000
 
-__all__ = ["BENCHMARKS", "EXHAUSTIVE", "SAMPLED", "SAMPLE_N", "GemmProblem",
-           "AttentionProblem", "NbodyProblem", "PnpolyProblem",
+
+def launch_counts() -> dict[str, int]:
+    """Each public op's count of kernel launches (its wrapper's calls that
+    launched the CUDA kernel; the plain version on the CPU counts none),
+    by kernel name."""
+    from .attention import ops as attention
+    from .conv2d import ops as conv2d
+    from .dedisp import ops as dedisp
+    from .expdist import ops as expdist
+    from .hotspot import ops as hotspot
+    from .matmul import ops as matmul
+    from .nbody import ops as nbody
+    from .pnpoly import ops as pnpoly
+    return {"gemm": matmul.gemm.launches,
+            "flash_attention": attention.attention.launches,
+            "nbody": nbody.nbody.launches, "pnpoly": pnpoly.pnpoly.launches,
+            "conv2d": conv2d.conv2d.launches,
+            "hotspot": hotspot.hotspot.launches,
+            "expdist": expdist.expdist.launches,
+            "dedisp": dedisp.dedisp.launches}
+
+
+__all__ = ["BENCHMARKS", "EXHAUSTIVE", "SAMPLED", "SAMPLE_N", "launch_counts",
+           "GemmProblem", "AttentionProblem", "NbodyProblem", "PnpolyProblem",
            "Conv2dProblem", "HotspotProblem", "DedispProblem",
            "ExpdistProblem"]

@@ -14,6 +14,7 @@ Port of ``repro.kernels.common``.  Each kernel package provides:
 from __future__ import annotations
 
 import functools
+import json
 import math
 from typing import Any, Callable, Sequence
 
@@ -163,6 +164,21 @@ def per_value(fn: Callable[..., float], *cols) -> np.ndarray:
     return out if any(np.ndim(c) for c in cols) else out[0]
 
 
+#: kernel problems this process rebuilt from a pickle, by their
+#: constructor's arguments (:meth:`KernelProblem.__reduce__`)
+_REBUILT: dict[tuple, "KernelProblem"] = {}
+
+
+def _rebuilt(cls: type, shape: dict, device: str, repeats: int,
+             warmup: int) -> "KernelProblem":
+    """The process's one live ``cls`` problem for these arguments."""
+    key = (cls, json.dumps(shape, sort_keys=True), device, repeats, warmup)
+    if key not in _REBUILT:
+        _REBUILT[key] = cls(shape=shape, device=device, repeats=repeats,
+                            warmup=warmup)
+    return _REBUILT[key]
+
+
 class KernelProblem(MeasuredProblem):
     """A tunable kernel bound to a concrete input shape and a device.
 
@@ -191,6 +207,17 @@ class KernelProblem(MeasuredProblem):
         super().__init__(self.build_space(), self.make_runner,
                          name=self.kernel_name, repeats=repeats,
                          warmup=warmup, device=dev)
+
+    def __reduce__(self):
+        """Pickle as the constructor's arguments.  A spawned measuring
+        process (``orchestrator.workers``) then builds the problem itself,
+        once, with its inputs and L2 flush buffer on its own device; the
+        space's constraint closures, the compiled table and device tensors
+        never cross.  A plain ``cuda`` device follows the card the process
+        was pinned to; a named one (``cuda:1``) stays that card, where the
+        pool pins its one process (``workers.measuring_cards``)."""
+        return (_rebuilt, (type(self), dict(self.shape), str(self.device),
+                           self.repeats, self.warmup))
 
     def build_space(self) -> SearchSpace:
         raise NotImplementedError

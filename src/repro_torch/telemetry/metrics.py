@@ -1,22 +1,39 @@
-"""In-process metrics: counters/gauges/histograms.
+"""Fleet metrics: in-process counters/gauges/histograms + broker aggregation.
 
-A registry of labelled instruments updated by the tuning loop while it
-executes.  Off by default — every instrument lookup first checks the
-enable flag and returns a shared no-op instrument, so the disabled path is
-a function call and a flag test.  Instrument handles are cached by callers
-outside their loops, making the per-batch cost a single no-op method call.
-Names follow the JAX package's scheme (docs/architecture.md, "Telemetry
-contracts").  Its second half, fleet aggregation over an orchestrator
-broker's samples, comes to the port with the orchestrator.
+Two halves share one naming scheme (docs/architecture.md, "Telemetry
+contracts"):
+
+* **in-process**: a registry of labelled instruments updated by the
+  runner / pool / campaign while they execute.  Off by default — every
+  instrument lookup first checks the enable flag and returns a shared
+  no-op instrument, so the disabled path is a function call and a flag
+  test.  Instrument handles are cached by callers outside their loops,
+  making the per-batch cost a single no-op method call.
+* **fleet**: detached :class:`~repro_torch.orchestrator.workers.BrokerWorker`
+  processes record per-job samples into their broker's ``metrics``
+  table (SQLite) or sample log + JSONL sink (MemoryBroker);
+  :func:`fleet_snapshot` joins those samples with the broker's live
+  ``counts()`` / ``in_flight()`` views into one JSON-friendly dict —
+  what ``repro_torch.orchestrator metrics`` dumps or tails.
+
+Sample kinds: ``counter`` samples are summed per (worker, name);
+``gauge`` samples are last-write-wins per (worker, name).  Samples are
+never deleted by ``collect()`` or lease reaping, so a SIGKILLed
+worker's counters survive its jobs being requeued to another worker.
 """
 
 from __future__ import annotations
 
 import threading
+import time
+from typing import TYPE_CHECKING
+
+if TYPE_CHECKING:                      # pragma: no cover - typing only
+    from ..orchestrator.broker import Broker
 
 __all__ = [
     "counter", "gauge", "histogram", "registry", "enable", "disable",
-    "is_enabled", "reset", "snapshot",
+    "is_enabled", "reset", "snapshot", "fleet_snapshot",
     "MetricsRegistry", "Counter", "Gauge", "Histogram",
 ]
 
@@ -178,3 +195,54 @@ def reset() -> None:
 
 def snapshot() -> list[dict]:
     return _REGISTRY.snapshot()
+
+
+# --------------------------------------------------------------------- #
+# fleet aggregation (broker-backed)
+# --------------------------------------------------------------------- #
+def aggregate_samples(samples: list[dict]) -> dict[str, dict[str, float]]:
+    """Per-worker aggregates from raw broker samples.
+
+    Counters are summed; gauges take the latest sample (samples arrive
+    ordered by record time).  Returns ``{worker: {name: value}}``.
+    """
+    out: dict[str, dict[str, float]] = {}
+    for s in samples:
+        w = out.setdefault(s["worker"], {})
+        if s.get("kind") == "gauge":
+            w[s["name"]] = s["value"]
+        else:
+            w[s["name"]] = w.get(s["name"], 0.0) + s["value"]
+    return out
+
+
+def fleet_snapshot(broker: "Broker") -> dict:
+    """One JSON-friendly view of a fleet: queue depth, lease/heartbeat
+    health per worker, and worker-recorded throughput aggregates.
+
+    This is a *read* — it never mutates broker state (no lease reaping),
+    so it is safe to poll from a dashboard loop while workers run.
+    """
+    now = time.time()
+    snap = {"ts": now, "queue": broker.counts(), "workers": {}}
+
+    def _w(worker: str) -> dict:
+        return snap["workers"].setdefault(worker, {
+            "leases": 0, "heartbeat_age": None, "stale": False})
+
+    for job in broker.in_flight():
+        w = _w(job["worker"])
+        w["leases"] += 1
+        age = job.get("heartbeat_age")
+        if age is not None and (w["heartbeat_age"] is None
+                                or age < w["heartbeat_age"]):
+            w["heartbeat_age"] = age
+        w["stale"] = w["stale"] or bool(job.get("stale"))
+
+    for worker, agg in aggregate_samples(broker.read_metrics()).items():
+        w = _w(worker)
+        w.update(agg)
+        eval_s = agg.get("eval_s")
+        if eval_s and "configs_per_s" not in agg:
+            w["configs_per_s"] = agg.get("evals", 0.0) / eval_s
+    return snap

@@ -48,7 +48,7 @@ from typing import Callable, Iterable
 __all__ = [
     "span", "traced", "tracing", "enable", "disable", "is_enabled",
     "clear", "events", "export_jsonl", "export_chrome", "summarize",
-    "DEFAULT_BUFFER",
+    "drain", "ingest", "DEFAULT_BUFFER",
 ]
 
 #: default ring-buffer capacity (finished spans kept in memory)
@@ -202,6 +202,25 @@ def is_enabled() -> bool:
 
 def clear() -> None:
     _TRACER.clear()
+
+
+def drain() -> list[tuple]:
+    """Take every finished span out of the ring buffer, as raw records
+    (what a spawned worker process hands back to its parent)."""
+    out = []
+    events = _TRACER.events
+    while events:
+        out.append(events.popleft())
+    return out
+
+
+def ingest(records: Iterable[tuple], **args) -> None:
+    """Append raw records from another process to the ring buffer, each
+    with ``args`` added (e.g. the ``pid`` it ran in).  The timestamps are
+    ``perf_counter_ns`` readings, one clock for every process of a host."""
+    events = _TRACER.events
+    for name, cat, t0, dur, tid, depth, a in records:
+        events.append((name, cat, t0, dur, tid, depth, {**a, **args}))
 
 
 # --------------------------------------------------------------------- #

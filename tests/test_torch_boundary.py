@@ -28,6 +28,8 @@ from repro_torch.kernels.nbody.space import NbodyProblem  # noqa: E402
 from repro_torch.kernels.pnpoly.space import PnpolyProblem  # noqa: E402
 from repro_torch.kernels.matmul.space import (GemmProblem,  # noqa: E402
                                               inputs_from_numpy)
+from repro_torch.orchestrator import (SessionSpec, make_problem,  # noqa: E402
+                                      run_session)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -60,7 +62,22 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.kernels.hotspot.space",
             "repro_torch.kernels.expdist.space",
             "repro_torch.kernels.dedisp.space",
-            "repro_torch.landscape"} <= set(got["modules"])
+            "repro_torch.landscape",
+            "repro_torch.core.retry",
+            "repro_torch.orchestrator",
+            "repro_torch.orchestrator.__main__",
+            "repro_torch.orchestrator.broker",
+            "repro_torch.orchestrator.campaign",
+            "repro_torch.orchestrator.chaos",
+            "repro_torch.orchestrator.cli",
+            "repro_torch.orchestrator.doctor",
+            "repro_torch.orchestrator.queue",
+            "repro_torch.orchestrator.registry",
+            "repro_torch.orchestrator.runner",
+            "repro_torch.orchestrator.session",
+            "repro_torch.orchestrator.store",
+            "repro_torch.orchestrator.supervisor",
+            "repro_torch.orchestrator.workers"} <= set(got["modules"])
     assert got["bad"] == [], f"repro_torch loaded {got['bad']}"
 
 
@@ -96,6 +113,10 @@ ENTRY_POINTS = {
         problem="dedisp_h100", small=True, budget=1, sample=1),
     "landscape.main(hotspot_h100)": lambda: landscape.main(
         problem="hotspot_h100", small=True, samples=4),
+    "orchestrator.make_problem": lambda: make_problem("gemm_h100"),
+    "orchestrator.run_session": lambda: run_session(SessionSpec(
+        problem="flash_attention_h100", tuner="random", arch="h100sxm",
+        budget=2)),
 }
 
 

@@ -426,3 +426,45 @@ def test_dedisp_kernel_matches_plain_version(hopper):
         assert int((got != want).sum()) == 0, cfg
         assert rel_l2(got, prob.run_reference(cfg, x)) \
             <= tolerance(prob.name, cfg)
+
+
+# --------------------------------------------------------------------- #
+# the session layer on the card
+# --------------------------------------------------------------------- #
+def test_config_that_breaks_the_context_is_poisoned_alone(hopper):
+    """A device-side assert leaves its process's CUDA context unusable:
+    the measuring worker exits, the pool is rebuilt, and only that config
+    ends poisoned; every later config measures on a fresh process."""
+    from torch_toys import DeviceAssert
+
+    from repro_torch.orchestrator import SessionSpec, run_session
+    prob = DeviceAssert()
+    spec = SessionSpec(problem="device_assert", tuner="grid", budget=4,
+                       arch=prob.arch, workers=2)
+    res = run_session(spec, problem=prob, max_retries=1)
+    assert len(res.trials) == 4
+    bad = [t for t in res.trials if not t.valid]
+    assert [t.config["a"] for t in bad] == [1]
+    assert bad[0].info["poison"] is True and bad[0].info["attempts"] == 2
+    good = [t for t in res.trials if t.valid]
+    assert sorted(t.config["a"] for t in good) == [0, 2, 3]
+    assert all(t.info["device"] == 0 and t.info["repeats"] == 3
+               for t in good)
+
+
+def test_pool_runs_one_measuring_process_per_card(hopper):
+    """``workers=4`` on one card: one process measures, pinned to device
+    0, and its spans come back to the parent's trace."""
+    from repro_torch.orchestrator import WorkerPool
+    from repro_torch.telemetry import trace
+    prob = GemmProblem(shape=SMALL_SHAPE, device="cuda", repeats=2,
+                       warmup=1)
+    cfgs = prob.space.sample_distinct(6, 0)
+    with trace.tracing(), WorkerPool(prob, prob.arch, workers=4) as pool:
+        assert pool.mode == "process"
+        trials = pool.evaluate(cfgs)
+        spans = [e for e in trace.events() if e["name"] == "kernel.measure"]
+    n = torch.cuda.device_count()
+    assert all(t.ok and t.info["device"] == 0 for t in trials) or n > 1
+    assert len(spans) == len(cfgs)
+    assert len({e["args"]["pid"] for e in spans}) == min(4, n)
