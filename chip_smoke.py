@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port (``src/repro_torch``) on one Hopper card.
 
     python3 chip_smoke.py [--budget N] [--samples S] [--json PATH]
+    python3 chip_smoke.py --start-probe T     # one start probe, see phase 8
 
 Phases, each timed:
 
@@ -121,6 +122,27 @@ Phases, each timed:
                each row they asked measured once).  Its kernel launches
                happen in the measuring processes, whose spans carry them
                back (``orchestrator_launches`` in the ``kernels`` line).
+               A CLI call that measures starts its measuring process
+               before it imports torch itself, and the pool adopts it
+               (``workers.start_early``: each call's "adopted" line).
+               Then one measuring process's start, split by the start probe
+               (``--start-probe``, :func:`start_probe`): interpreter,
+               ``import torch``, the kernel modules, the CUDA context, the
+               problem's inputs at 4096^3, the first config, the exit.
+9. tuners    — the five tuners the port took last (local search, simulated
+               annealing, differential evolution, particle swarm and
+               surrogate BO), each run live in this process over
+               ``gemm_h100`` at 4096^3 (seed 0, budget 40): 40 trials, none
+               invalid, GEMM's launches up by exactly 7 a config, the
+               winner against the oracle and the plain version, and a
+               replay over the recorded objectives asking the same rows in
+               the same order; then all eight tuners over the whole
+               conv2d and pnpoly tables the path phases measured
+               (``landscape.compare_tuners``: budget 200, seeds 0-4;
+               surrogate BO 128, seeds 0-2), nothing timed again:
+               evaluations to 90 % and 99 % of the table's best and the
+               share reached at the budget (``tuners_launches`` in GEMM's
+               line of the ``kernels`` line).
 
 Prints the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  A kernel's ``launches`` counts its wrapper's calls on its path;
@@ -143,6 +165,9 @@ import time
 from contextlib import contextmanager
 from pathlib import Path
 
+#: when this process began running the script (its interpreter and the
+#: standard modules above are up): the start probe's first stamp
+STARTED = time.time()
 ROOT = Path(__file__).resolve().parent
 #: the bound's peak rates: the H100 SXM row of the port's cost model
 #: (``core/costmodel.py``, the data sheet's dense peaks), so that the bound
@@ -155,9 +180,10 @@ ROOT = Path(__file__).resolve().parent
 #: throughput, cc 9.0) x 132 SMs x 1.98 GHz
 SPEC_ARCH = "h100sxm"
 #: configs the hotspot path's landscape measures at most: the register
-#: design's configs cost about 0.2 s each to measure (seven calls of 8 to
-#: 70 ms), so it takes the 1000 that expdist takes (PERF.md section 4)
-HOTSPOT_SAMPLES = 1000
+#: design's configs cost about 0.21 s each to measure (seven calls of 8 to
+#: 70 ms), and with 1000 of them the script took 1175.8 s of its 1200 s
+#: limit (PERF.md section 5), so the path takes 400
+HOTSPOT_SAMPLES = 400
 #: the costmodel phase's held-out configs a problem not measured whole, and
 #: the seed of their draw: configs outside the path's trials, which the
 #: model's terms were never checked against
@@ -756,6 +782,147 @@ def orchestrator_check(gemm, attention, gemm_random,
     return out
 
 
+#: the tuners phase: the five tuners that came to the port with the
+#: warm-start seam, each run live over GEMM at its full shape with this
+#: budget and seed
+LIVE_TUNERS = ("local", "annealing", "diffevo", "pso", "surrogate_bo")
+LIVE_BUDGET, LIVE_SEED = 40, 0
+
+
+def start_probe(spawned: float) -> dict:
+    """What a measuring process does before it times its first config,
+    stamped (``time.time()``): run as ``chip_smoke.py --start-probe T`` by
+    :func:`start_split`, where ``T`` is when the parent started it.  The
+    steps are those of a GEMM measuring process of the worker pool
+    (``orchestrator/workers.py``): ``import torch``; the problem's modules
+    (unpickling a ``GemmProblem`` imports its kernel package); the CUDA
+    context (the pool's initializer pins the card); the problem and its
+    inputs at 4096^3; the first config measured (the kernel's library
+    loaded, the L2 flush buffer, 2 warm-ups and 5 repeats)."""
+    stamps = {"spawned": spawned, "interpreter": STARTED}
+    import torch
+    stamps["import_torch"] = time.time()
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels.matmul import ops
+    from repro_torch.kernels.matmul.space import GemmProblem
+    stamps["import_kernels"] = time.time()
+    torch.cuda.set_device(0)
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    stamps["cuda_context"] = time.time()
+    prob = GemmProblem(device="cuda")
+    prob.make_runner(ops.DEFAULT_CONFIG)
+    torch.cuda.synchronize()
+    stamps["problem_inputs"] = time.time()
+    t = prob.evaluate(ops.DEFAULT_CONFIG)
+    stamps["first_config"] = time.time()
+    stamps["ok"] = t.ok
+    stamps["modules"] = sorted(m for m in sys.modules
+                               if m.startswith("repro_torch.kernels."))
+    return stamps
+
+
+def start_split() -> dict:
+    """Start one :func:`start_probe` process and split its start into the
+    seconds of each step, the exit (its last stamp to the parent seeing it
+    end) and the whole."""
+    spawned = time.time()
+    p = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                        "--start-probe", repr(spawned)], cwd=ROOT,
+                       capture_output=True, text=True, timeout=600)
+    ended = time.time()
+    if p.returncode != 0:
+        raise SystemExit(f"chip_smoke: the start probe exited "
+                         f"{p.returncode}:\n{p.stderr[-4000:]}")
+    stamps = json.loads(p.stdout.strip().splitlines()[-1])
+    steps = ("spawned", "interpreter", "import_torch", "import_kernels",
+             "cuda_context", "problem_inputs", "first_config")
+    split = {b: stamps[b] - stamps[a] for a, b in zip(steps, steps[1:])}
+    split["exit"] = ended - stamps["first_config"]
+    split["total"] = ended - spawned
+    return {"seconds": split, "ok": stamps["ok"],
+            "kernel_modules": stamps["modules"]}
+
+
+def tuners_check(gemm, winner_check, tables: dict,
+                 failures: list[str]) -> dict:
+    """The tuners phase.
+
+    (a) Live: each of ``LIVE_TUNERS`` runs ``run_tuner`` over ``gemm`` (the
+    full-shape problem on the card) with ``LIVE_BUDGET`` and ``LIVE_SEED``,
+    in this process: exactly ``LIVE_BUDGET`` trials, none invalid; GEMM's
+    launch count up by exactly ``warmup + repeats`` a config measured; the
+    winner through ``winner_check`` (the oracle and the plain version, as
+    the ``main`` phase holds its own); and the same tuner and seed rerun
+    over a ``FunctionProblem`` that answers the live run's recorded
+    objectives asks the same rows in the same order.
+
+    (b) The paper's comparison: every tuner over each whole table of
+    ``tables`` (name -> (problem, table)), answered from the table
+    (``landscape.compare_tuners``), no config timed again.
+
+    Returns what it measured; ``launches`` is GEMM's count in (a)."""
+    import math
+
+    from repro_torch.core.problem import FunctionProblem
+    from repro_torch.core.tuners import TUNERS, run_tuner
+    from repro_torch.kernels.matmul import ops
+    from repro_torch.landscape import compare_tuners, print_comparison
+    sp = gemm.space
+    per = gemm.warmup + gemm.repeats
+    out: dict = {"live": {}, "compare": {}, "launches": 0}
+    for name in LIVE_TUNERS:
+        before = ops.gemm.launches
+        t0 = time.perf_counter()
+        res = run_tuner(TUNERS[name](sp, seed=LIVE_SEED), gemm, LIVE_BUDGET,
+                        arch=gemm.arch)
+        live_s = time.perf_counter() - t0
+        launched = ops.gemm.launches - before
+        out["launches"] += launched
+        rows = [sp.flat_index(t.config) for t in res.trials]
+        recorded = dict(zip(rows, (t.objective for t in res.trials)))
+        replay = run_tuner(
+            TUNERS[name](sp, seed=LIVE_SEED),
+            FunctionProblem(sp, lambda c, a: recorded.get(sp.flat_index(c),
+                                                          math.inf),
+                            name=gemm.name), LIVE_BUDGET, arch=gemm.arch)
+        same = [sp.flat_index(t.config) for t in replay.trials] == rows
+        bad = [t.config for t in res.trials if not t.ok]
+        best = res.best
+        print(f"  {name:13s} {len(res.trials)} configs measured in "
+              f"{live_s:.2f} s, {len(bad)} invalid, gemm launches "
+              f"{launched}; best {best.objective * 1e3:.4f} ms "
+              f"{best.config}; replay over the recorded objectives "
+              f"{'asks the same rows' if same else 'DIFFERS'}")
+        checks = [
+            (len(res.trials) == LIVE_BUDGET and not bad,
+             f"{len(res.trials)} trials, {len(bad)} invalid"),
+            (launched == len(res.trials) * per,
+             f"gemm launches {launched}, not {len(res.trials)} configs x "
+             f"{per}"),
+            (same, "the replay over the recorded objectives asked other "
+             "rows")]
+        failures.extend(f"tuners {name}: {msg}" for ok, msg in checks
+                        if not ok)
+        winner_check(best.config)
+        out["live"][name] = {
+            "seconds": live_s, "configs": len(res.trials),
+            "invalid": len(bad), "launches": launched,
+            "best_ms": best.objective * 1e3, "best_config": best.config,
+            "replay_same": same,
+            "trials": [{"config": t.config, "info": t.info}
+                       for t in res.trials]}
+    for name, (prob, table) in tables.items():
+        t0 = time.perf_counter()
+        comp = compare_tuners(prob, table)
+        print_comparison(prob.name, comp)
+        out["compare"][name] = {"seconds": time.perf_counter() - t0,
+                                "best_ms": table.best()[1] * 1e3,
+                                "configs": len(table.configs),
+                                "tuners": comp}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="smoke run of the port on a card")
     ap.add_argument("--budget", type=int, default=100,
@@ -766,7 +933,14 @@ def main(argv=None) -> int:
                          "paper's is 10 000)")
     ap.add_argument("--json", default=None,
                     help="also write every measurement to this file")
+    ap.add_argument("--start-probe", type=float, default=None,
+                    metavar="T", help="run only the start probe, started "
+                    "at time.time() T, and print its stamps (what the "
+                    "orchestrator phase runs)")
     args = ap.parse_args(argv)
+    if args.start_probe is not None:
+        print(json.dumps(start_probe(args.start_probe)))
+        return 0
 
     import torch
     if not torch.cuda.is_available():
@@ -1872,9 +2046,40 @@ def main(argv=None) -> int:
         orch = orchestrator_check(full, ffull, gemm_random,
                                   table_best_s, args.budget, failures)
         orch["seconds"] = time.perf_counter() - t0
+        split = start_split()
+        orch["start_split"] = split
         record["orchestrator"] = orch
         print(f"  orchestrator phase {orch['seconds']:.1f} s; kernel "
               f"launches in its measuring processes {orch['launches']}")
+        print("  a measuring process's start, split (s): " + ", ".join(
+            f"{k} {v:.2f}" for k, v in split["seconds"].items())
+            + f"; kernel modules imported {len(split['kernel_modules'])}")
+        if not split["ok"]:
+            failures.append("the start probe's GEMM config was invalid")
+
+    def gemm_winner(cfg: dict) -> None:
+        """A tuner's GEMM winner at 4096^3: against the oracle within the
+        JAX package's tolerance (the quickstart's check) and against the
+        plain version (``gemm_parity``)."""
+        err = quickstart.rel_l2(full.run_kernel(cfg, xf),
+                                full.run_reference(cfg, xf))
+        tol = quickstart.tolerance(full.name, cfg)
+        print(f"    winner vs oracle rel_l2 {err:.3e} (tolerance {tol:g})")
+        if not err <= tol:
+            failures.append(f"GEMM winner {cfg} misses the oracle: rel_l2 "
+                            f"{err:.3e} > {tol:g}")
+        gemm_parity(cfg, xf, xf_nk)
+
+    with phase("tuners"):
+        t0 = time.perf_counter()
+        tun = tuners_check(
+            full, gemm_winner,
+            {"conv2d": (cfull, cpath["land"]["table"]),
+             "pnpoly": (pfull, ppath["land"]["table"])}, failures)
+        tun["seconds"] = time.perf_counter() - t0
+        record["tuners"] = tun
+        print(f"  tuners phase {tun['seconds']:.1f} s; gemm launches "
+              f"{tun['launches']}")
 
     lines = [
         {"name": "gemm", "route": "cuda",
@@ -1889,6 +2094,7 @@ def main(argv=None) -> int:
          "default_config": ops.DEFAULT_CONFIG,
          "tuned_ms": t_best * 1e3, "tuned_config": best.config,
          "orchestrator_launches": orch["launches"].get("gemm", 0),
+         "tuners_launches": tun["launches"],
          "build_s": build_s},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",

@@ -24,9 +24,12 @@ pays that cost once, vectorized:
   per-node order as ``SearchSpace.neighbors`` (parameter order, then value
   order) so consumers can swap paths bit-for-bit,
 * **row-native draws** for the index-native tuners:
-  :meth:`sample_row_rejection` replicates the legacy ``SearchSpace.sample``
-  rng draw sequence exactly (pure-int row arithmetic + one mask lookup per
-  try, no dicts).
+  :meth:`sample_row_rejection` and :meth:`random_neighbor_row` replicate the
+  legacy ``SearchSpace.sample`` / ``random_neighbor`` rng draw sequences
+  exactly (pure-int row arithmetic + one mask lookup per try, no dicts), and
+  :meth:`sample_neighbor_alias` draws a Hamming-1 move in O(1) from per-row
+  alias tables over the CSR neighbor lists (same conditional distribution as
+  the rejection sampler, different — shorter — draw sequence).
 
 Every compiled path is required to agree exactly with the legacy iterator
 path — the property tests in ``tests/test_spacetable.py`` enforce it — so
@@ -101,6 +104,7 @@ class CompiledSpace:
         self.row_pos[self.valid_rows] = np.arange(len(self.valid_rows))
         self._nbr_indptr: np.ndarray | None = None
         self._nbr_indices: np.ndarray | None = None
+        self._alias: tuple[np.ndarray, np.ndarray] | None = None
         self._value_arrays: list[np.ndarray] | None = None
         #: plain-int copies for the tuners' per-candidate hot loops (numpy
         #: scalar indexing costs ~3x a list lookup at these sizes)
@@ -279,6 +283,98 @@ class CompiledSpace:
         raise RuntimeError(
             f"{self.space.name}: could not sample a valid config "
             f"in {max_tries} tries")
+
+    def random_neighbor_row(self, row: int, rng: random.Random,
+                            max_tries: int = 1000) -> int:
+        """Row-native ``SearchSpace.random_neighbor``: identical draw
+        sequence (param choice, value choice, retry on self/invalid),
+        returning ``row`` itself when no move is found — all in int
+        arithmetic plus one mask lookup per try."""
+        mask = self.mask
+        cards = self.py_cards
+        strides = self.py_strides
+        n_params = len(cards)
+        randbelow = rng._randbelow      # draw-identical to rng.choice
+        for _ in range(max_tries):
+            d = randbelow(n_params)
+            j = randbelow(cards[d])
+            cur = (row // strides[d]) % cards[d]
+            if j == cur:
+                continue
+            nrow = row + (j - cur) * strides[d]
+            if mask[nrow]:
+                return nrow
+        return row
+
+    # ------------------------------------------------------------------ #
+    # alias-sampled neighbor moves
+    # ------------------------------------------------------------------ #
+    def edge_params(self) -> np.ndarray:
+        """Per-CSR-edge moved-parameter index: edge ``e`` changes parameter
+        ``edge_params()[e]`` of its source config."""
+        indptr, indices = self.csr_neighbors()
+        src_pos = np.repeat(np.arange(len(indptr) - 1, dtype=np.int64),
+                            np.diff(indptr))
+        delta = np.abs(self.valid_rows[indices] - self.valid_rows[src_pos])
+        # a Hamming-1 move along dim d shifts the row by |j-cur| * strides[d]
+        # with |j-cur| < cards[d], so strides[d] <= |delta| < strides[d-1]:
+        # the dim is the first stride <= |delta| in the descending stride
+        # vector, i.e. the count of strides strictly greater than |delta|.
+        out = np.searchsorted(-self.strides, -delta, side="left")
+        return out.astype(np.int64)
+
+    def neighbor_alias(self) -> tuple[np.ndarray, np.ndarray]:
+        """Per-row Vose alias tables over the CSR neighbor lists, weighted
+        ``1/cards[moved_param]`` — the conditional distribution of the
+        accepted legacy rejection draw (uniform parameter, then uniform
+        value).  Aligned with ``csr_neighbors()``: entries
+        ``indptr[k]:indptr[k+1]`` are row ``k``'s (prob, alias) table, alias
+        indices *local* to the segment.  Built lazily, kept in memory."""
+        if self._alias is None:
+            indptr, indices = self.csr_neighbors()
+            w = 1.0 / self.cards[self.edge_params()].astype(np.float64)
+            prob = np.ones(len(indices), dtype=np.float64)
+            alias = np.zeros(len(indices), dtype=np.int64)
+            for k in range(len(indptr) - 1):
+                lo, hi = int(indptr[k]), int(indptr[k + 1])
+                deg = hi - lo
+                if deg == 0:
+                    continue
+                p = w[lo:hi] * (deg / w[lo:hi].sum())
+                small = [i for i in range(deg) if p[i] < 1.0]
+                large = [i for i in range(deg) if p[i] >= 1.0]
+                while small and large:
+                    s, g = small.pop(), large.pop()
+                    prob[lo + s] = p[s]
+                    alias[lo + s] = g
+                    p[g] = (p[g] + p[s]) - 1.0
+                    (small if p[g] < 1.0 else large).append(g)
+                for i in large + small:       # numerical leftovers: prob 1
+                    prob[lo + i] = 1.0
+                    alias[lo + i] = i
+        else:
+            return self._alias
+        self._alias = (prob, alias)
+        return self._alias
+
+    def sample_neighbor_alias(self, row: int, rng: random.Random) -> int:
+        """O(1) draw of a valid Hamming-1 neighbor row of a *valid* ``row``
+        from the alias tables (two rng draws: slot, coin).  Returns ``-1``
+        when the row has no valid neighbors (degenerate CSR row) and raises
+        ``ValueError`` for rows outside the valid set."""
+        pos = int(self.row_pos[row])
+        if pos < 0:
+            raise ValueError(f"row {row} is not a valid config row")
+        indptr, indices = self.csr_neighbors()
+        lo, hi = int(indptr[pos]), int(indptr[pos + 1])
+        deg = hi - lo
+        if deg == 0:
+            return -1
+        prob, alias = self.neighbor_alias()
+        k = rng.randrange(deg)
+        if rng.random() >= prob[lo + k]:
+            k = int(alias[lo + k])
+        return int(self.valid_rows[indices[lo + k]])
 
     # ------------------------------------------------------------------ #
     # CSR Hamming-1 neighbor tables

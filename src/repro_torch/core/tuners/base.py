@@ -48,6 +48,25 @@ The index-native paths replicate the scalar draw sequences exactly:
 ``_randbelow`` call, ``rng.sample(pop, k)`` depends only on ``len(pop)``,
 and ``rng.shuffle`` only on the list length — so row-arithmetic rewrites
 of value-choice/rejection loops are draw-for-draw identical.
+
+Warm-start seam
+---------------
+An optional seam lets a caller steer any tuner without per-tuner code:
+
+* **Warm start** (:meth:`Tuner.set_warm_start`): a queue of predicted-top
+  rows proposed *before* the subclass's own ask stream.  While the queue
+  drains, :meth:`propose_rows`/:meth:`ask`/:meth:`ask_batch` serve warm
+  rows and the subclass ask methods are never called — zero rng draws —
+  then tells flow through ``tell_rows`` as usual, so population tuners
+  absorb the warm rows as their initial generation.  When the last warm
+  row has been told, :meth:`_adopt_warm_best` hands the measured-best warm
+  row to sequential walkers (annealing, local search) as their walk state.
+  With no warm start installed every entry point is a pass-through, so
+  cold runs stay bit-identical to a tuner without the seam.
+
+The JAX package also screens fresh configs with a trained surrogate
+(``screen=``); the port has no surrogate yet, so ``run_tuner`` takes no
+``screen``.
 """
 
 from __future__ import annotations
@@ -183,6 +202,110 @@ class Tuner:
         # trajectories do not depend on whether compilation happened.  Tests
         # force the scalar oracle by clearing ``_comp`` after construction.
         self._comp = space.compile_eagerly()
+        # warm-start state (inert until set_warm_start): queued rows still
+        # to propose, told-count bookkeeping, and the measured-best warm row
+        self._warm_queue: list[int] = []
+        self._warm_pending = 0
+        self._warm_active = False
+        self._warm_adopted = False
+        self._warm_best_obj = math.inf
+        self._warm_best_row: int | None = None
+
+    # -- warm-start seam --------------------------------------------------- #
+    def set_warm_start(self, rows: Sequence[int] | None) -> None:
+        """Install predicted-top ``rows`` (flat indices) to propose before
+        the subclass's own ask stream.  ``None``/empty is a no-op: the run
+        stays draw-for-draw identical to a tuner that never saw this call.
+        Rows are deduplicated (order-preserving) and invalid rows dropped —
+        a stale model trained on another space revision must not inject
+        constraint-violating configs."""
+        queue: list[int] = []
+        seen: set[int] = set()
+        for r in rows or ():
+            r = int(r)
+            if r in seen:
+                continue
+            seen.add(r)
+            if self._comp is not None:
+                if not (0 <= r < self._comp.n_total
+                        and bool(self._comp.mask[r])):
+                    continue
+            elif not (0 <= r < self.space.cardinality
+                      and self.space.satisfies(self.space.from_flat_index(r))):
+                continue
+            queue.append(r)
+        self._warm_queue = queue
+        self._warm_active = bool(queue)
+        self._warm_adopted = not queue
+
+    @property
+    def warm_started(self) -> bool:
+        """True when a (non-empty) warm start was installed."""
+        return self._warm_active
+
+    def _warm_take(self, n: int) -> list[int]:
+        take = self._warm_queue[:n]
+        del self._warm_queue[:len(take)]
+        self._warm_pending += len(take)
+        return take
+
+    def _warm_account(self, row: int, obj: float) -> None:
+        self._warm_pending -= 1
+        if math.isfinite(obj) and obj < self._warm_best_obj:
+            self._warm_best_obj, self._warm_best_row = obj, int(row)
+
+    def _warm_maybe_adopt(self) -> None:
+        if (self._warm_active and not self._warm_adopted
+                and not self._warm_queue and self._warm_pending <= 0):
+            self._warm_adopted = True
+            if self._warm_best_row is not None:
+                self._adopt_warm_best(self._warm_best_row,
+                                      self._warm_best_obj)
+
+    def _adopt_warm_best(self, row: int, obj: float) -> None:
+        """Called once, after every warm row has been told, with the
+        measured-best warm row.  Population tuners ignore it (the warm rows
+        already seeded their population through ``tell``); sequential
+        walkers override it to start the walk there."""
+
+    def _absorb_warm_rows(self, rows: Sequence[int],
+                          objectives: Sequence[float]) -> None:
+        """How warm tells reach the subclass.  Default: straight through
+        ``tell_rows`` — population tuners absorb warm rows as their seeding
+        generation.  A tuner whose tell bookkeeping is keyed to its *own*
+        asks (PSO's particle queue) overrides this to absorb the results
+        without consuming that bookkeeping."""
+        self.tell_rows(rows, objectives)
+
+    def _absorb_warm_scalar(self, trial: Trial) -> None:
+        """Scalar-path twin of :meth:`_absorb_warm_rows`."""
+        self.tell_scalar(trial)
+
+    def propose_rows(self, n: int) -> list[int]:
+        """Warm-start-aware row entry point — what runners call.  Serves
+        queued warm rows first (no subclass ask, no rng draws), then
+        delegates to :meth:`ask_rows`.  A warm batch never mixes with
+        subclass proposals, so tell accounting stays positional."""
+        if self._warm_queue:
+            return self._warm_take(max(1, n))
+        return self.ask_rows(n)
+
+    def report_rows(self, rows: Sequence[int],
+                    objectives: Sequence[float]) -> None:
+        """Warm-start-aware tell entry point (pairs with
+        :meth:`propose_rows`).  Forwards everything to :meth:`tell_rows`
+        (so populations absorb warm rows), tracking the measured-best warm
+        row for :meth:`_adopt_warm_best`."""
+        if self._warm_pending > 0:
+            # warm batches never mix with subclass proposals, so a batch
+            # with warm tells pending is entirely warm
+            for r, o in zip(rows[:self._warm_pending], objectives):
+                self._warm_account(int(r), float(o))
+            self._absorb_warm_rows(rows, objectives)
+            self._warm_maybe_adopt()
+            return
+        self.tell_rows(rows, objectives)
+
     # -- index-native dispatch -------------------------------------------- #
     @property
     def index_native(self) -> bool:
@@ -215,16 +338,29 @@ class Tuner:
         pass
 
     # -- public dict protocol (all callers) ------------------------------- #
+    def _decode_warm(self, rows: Sequence[int]) -> list[Config]:
+        if self._comp is not None:
+            return self._comp.decode_many(rows)
+        return [self.space.from_flat_index(r) for r in rows]
+
     def ask(self) -> Config:
+        if self._warm_queue:
+            return self._decode_warm(self._warm_take(1))[0]
         if self.index_native:
             return self._comp.decode_row(self.ask_rows(1)[0])
         return self.ask_scalar()
 
     def tell(self, trial: Trial) -> None:
         if self.index_native:
-            self.tell_rows([self.space.flat_index(trial.config)],
-                           [_objective_of(trial)])
+            self.report_rows([self.space.flat_index(trial.config)],
+                             [_objective_of(trial)])
         else:
+            if self._warm_pending > 0:
+                self._warm_account(self.space.flat_index(trial.config),
+                                   _objective_of(trial))
+                self._absorb_warm_scalar(trial)
+                self._warm_maybe_adopt()
+                return
             self.tell_scalar(trial)
 
     # -- batched protocol ------------------------------------------------- #
@@ -234,6 +370,8 @@ class Tuner:
         in ask order, before the next batch.  An empty batch is an
         exhaustion signal equivalent to :meth:`finished` — callers must
         stop asking rather than index into it."""
+        if self._warm_queue:
+            return self._decode_warm(self._warm_take(max(1, n)))
         if self.index_native:
             return self._comp.decode_many(self.ask_rows(max(1, n)))
         return [self.ask_scalar() for _ in range(max(1, n))]
@@ -241,7 +379,7 @@ class Tuner:
     def tell_batch(self, trials: Sequence[Trial]) -> None:
         """Report evaluated trials, in the order they were asked."""
         if self.index_native:
-            self.tell_rows(
+            self.report_rows(
                 [int(k) for k in
                  self.space.flat_index_many([t.config for t in trials])],
                 [_objective_of(t) for t in trials])
@@ -255,7 +393,8 @@ class Tuner:
 
 
 def run_tuner(tuner: Tuner, problem: TunableProblem, budget: int,
-              arch: str = DEFAULT_ARCH, unique: bool = True) -> TuneResult:
+              arch: str = DEFAULT_ARCH, unique: bool = True,
+              warm_start: Sequence[int] | None = None) -> TuneResult:
     """Drive ``tuner`` for ``budget`` objective evaluations.
 
     ``unique=True``: re-asked configs are answered from cache and do NOT
@@ -265,7 +404,13 @@ def run_tuner(tuner: Tuner, problem: TunableProblem, budget: int,
     Index-native tuners run the loop in row space — dedup keys *are* the
     asked rows, no ``flat_index`` per ask — with the same trajectory, budget
     accounting, and trace as the scalar loop.
+
+    ``warm_start``: predicted-top rows installed via
+    :meth:`Tuner.set_warm_start` before the loop (``None`` leaves the run
+    bit-identical to a cold one).
     """
+    if warm_start is not None:
+        tuner.set_warm_start(warm_start)
     res = TuneResult(tuner.name, problem.name, arch, tuner.seed)
     cache: dict[int, Trial] = {}
     native = tuner.index_native
@@ -277,17 +422,17 @@ def run_tuner(tuner: Tuner, problem: TunableProblem, budget: int,
         asks += 1
         if native:
             with span("tuner.ask", cat="tuner"):
-                key = int(tuner.ask_rows(1)[0])
+                key = int(tuner.propose_rows(1)[0])
             if key in cache:
                 with span("tuner.tell", cat="tuner"):
-                    tuner.tell_rows([key], [_objective_of(cache[key])])
+                    tuner.report_rows([key], [_objective_of(cache[key])])
                 if not unique:
                     res.trials.append(cache[key])
                 continue
             t = problem.evaluate(comp.decode_row(key), arch)
             cache[key] = t
             with span("tuner.tell", cat="tuner"):
-                tuner.tell_rows([key], [_objective_of(t)])
+                tuner.report_rows([key], [_objective_of(t)])
         else:
             with span("tuner.ask", cat="tuner"):
                 cfg = tuner.ask()

@@ -1,13 +1,15 @@
-"""The port's benchmark kernels, one package each, and their registry."""
+"""The port's benchmark kernels, one package each, their public ops and
+their registry.  ``flash_attention`` is the port's public attention op
+(``attention.ops.attention``)."""
 
-from .attention import AttentionProblem
-from .conv2d import Conv2dProblem
-from .dedisp import DedispProblem
-from .expdist import ExpdistProblem
-from .hotspot import HotspotProblem
-from .matmul import GemmProblem
-from .nbody import NbodyProblem
-from .pnpoly import PnpolyProblem
+from .attention import AttentionProblem, flash_attention
+from .conv2d import Conv2dProblem, conv2d
+from .dedisp import DedispProblem, dedisp
+from .expdist import ExpdistProblem, expdist
+from .hotspot import HotspotProblem, hotspot
+from .matmul import GemmProblem, gemm
+from .nbody import NbodyProblem, nbody
+from .pnpoly import PnpolyProblem, pnpoly
 
 #: the benchmark registry (problem name -> problem class); order follows
 #: the JAX package's
@@ -57,4 +59,6 @@ def launch_counts() -> dict[str, int]:
 __all__ = ["BENCHMARKS", "EXHAUSTIVE", "SAMPLED", "SAMPLE_N", "launch_counts",
            "GemmProblem", "AttentionProblem", "NbodyProblem", "PnpolyProblem",
            "Conv2dProblem", "HotspotProblem", "DedispProblem",
-           "ExpdistProblem"]
+           "ExpdistProblem",
+           "gemm", "conv2d", "nbody", "hotspot", "pnpoly", "expdist",
+           "dedisp", "flash_attention"]

@@ -39,6 +39,11 @@ same configs; ``--portability`` adds the table measured on the device over
 those configs as one more arch (with the card: ``h100``), and with the
 measured arch it adds the model's ids.
 
+:func:`compare_tuners` runs every registered tuner over a whole table: the
+paper's comparison of optimisation algorithms on the suite, with no config
+timed again (``chip_smoke.py``'s ``tuners`` phase runs it on the card's
+conv2d and pnpoly tables).
+
 Port of the JAX package's ``benchmarks/fig2_convergence.py``,
 ``fig3_centrality.py``, ``fig4_speedup.py``, ``fig5_portability.py``,
 ``fig6_importance.py`` and ``table8_spacestats.py`` for one problem.
@@ -59,7 +64,7 @@ from .core.analysis import (centrality_curve, evals_to_reach,
 from .core.costmodel import ARCH_NAMES
 from .core.problem import FunctionProblem
 from .core.results import ResultsDB, ResultTable
-from .core.tuners import GridSearch, run_tuner
+from .core.tuners import TUNERS, GridSearch, run_tuner
 from .kernels import BENCHMARKS, EXHAUSTIVE, SAMPLE_N, SAMPLED
 
 #: the paper's random-search protocol for Fig 2 (benchmarks/fig2_convergence)
@@ -69,6 +74,14 @@ CENTRALITY_PS = np.linspace(0.0, 0.5, 11)
 CENTRALITY_P = 0.1
 #: Table VIII keeps the parameters with PFI at least this
 PFI_THRESHOLD = 0.05
+#: the tuner comparison: evaluations and seeds a tuner; SurrogateBO refits
+#: its trees after every batch, work that grows with the square of its
+#: budget, so it takes the cap the JAX package's tuner benchmark gives it
+#: (``benchmarks/tuner_bench.py`` ``BUDGETS``) and three seeds
+COMPARE_BUDGET, COMPARE_SEEDS = 200, (0, 1, 2, 3, 4)
+COMPARE_CAPS = {"surrogate_bo": (128, (0, 1, 2))}
+#: the shares of the table's best the comparison reports reaching
+COMPARE_LEVELS = (0.90, 0.99)
 
 
 def table8(prob, table: ResultTable, trials) -> dict:
@@ -113,6 +126,68 @@ def analyse(prob, table: ResultTable, trials) -> dict:
             "centrality": cent["proportion"][at], "centrality_curve": cent,
             "pfi": dict(zip(imp["params"], imp["pfi"])), "r2": imp["r2"],
             "pfi_sum": imp["pfi_sum"], "table8": row, "best_config": best}
+
+
+def _evals_to(share: list[float], level: float) -> float:
+    """1-based evaluations until ``share`` (the best so far as a share of
+    the table's best) reaches ``level``; ``inf`` if it never does."""
+    return next((i + 1 for i, v in enumerate(share) if v >= level),
+                math.inf)
+
+
+def compare_tuners(prob, table: ResultTable) -> dict:
+    """Every tuner of ``TUNERS`` over ``table``, a whole table of ``prob``:
+    each run answers a config with its objective in the table, so nothing
+    is timed again.  Per tuner, over
+    its seeds (:data:`COMPARE_SEEDS`, :data:`COMPARE_CAPS`): the median of
+    the evaluations it took to reach each of :data:`COMPARE_LEVELS` of the
+    table's best (``inf`` where the median seed never did within the
+    budget) and the median share of the best it reached at the budget."""
+    if table.protocol != "exhaustive":
+        raise ValueError(f"the tuner comparison needs a whole table, not "
+                         f"{table.protocol!r}")
+    sp = prob.space
+    objs = {sp.flat_index(sp.decode(c)): o
+            for c, o in zip(table.configs, table.objectives)}
+    best = min(o for o in objs.values() if math.isfinite(o))
+    lookup = FunctionProblem(sp, lambda c, a: objs[sp.flat_index(c)],
+                             name=prob.name)
+    out = {}
+    for name in TUNERS:
+        budget, seeds = COMPARE_CAPS.get(name,
+                                         (COMPARE_BUDGET, COMPARE_SEEDS))
+        t0 = time.perf_counter()
+        runs = []
+        for seed in seeds:
+            res = run_tuner(TUNERS[name](sp, seed=seed), lookup, budget,
+                            arch=table.arch)
+            share = [best / b for b in res.best_curve()]
+            runs.append({"seed": seed, "evals": len(share),
+                         "share": share[-1] if share else 0.0,
+                         **{f"n{round(lv * 100)}": _evals_to(share, lv)
+                            for lv in COMPARE_LEVELS}})
+        row = {"budget": budget, "seeds": list(seeds),
+               "share": float(np.median([r["share"] for r in runs])),
+               "runs": runs, "seconds": time.perf_counter() - t0}
+        for lv in COMPARE_LEVELS:
+            key = f"n{round(lv * 100)}"
+            row[key] = float(np.median([r[key] for r in runs]))
+        out[name] = row
+    return out
+
+
+def print_comparison(name: str, comp: dict) -> None:
+    """The comparison's table, one line a tuner."""
+    print(f"tuners on {name}'s whole table (median over seeds; evaluations "
+          f"to reach 90 % / 99 % of the best, share of the best at the "
+          f"budget)")
+    for tuner, r in comp.items():
+        reach = " / ".join(
+            f"{r[k]:g}" if math.isfinite(r[k]) else f">{r['budget']}"
+            for k in (f"n{round(lv * 100)}" for lv in COMPARE_LEVELS))
+        print(f"  {tuner:13s} budget {r['budget']:3d} x {len(r['seeds'])} "
+              f"seeds: {reach:>11s}, {r['share']:.4f} at the budget "
+              f"({r['seconds']:.1f} s)")
 
 
 def fig5(prob, trials, tables: dict) -> dict:

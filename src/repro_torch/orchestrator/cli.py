@@ -16,10 +16,17 @@ Subcommands::
                on a host with cards each worker gets its own
     metrics  — dump or tail a broker fleet's aggregate metrics as JSON
     doctor   — offline integrity check of a store (+ broker): torn
-               journal lines, orphaned RUNNING sessions, stale leases
+               journal lines, orphaned RUNNING sessions, stale leases;
+               --lint folds in the contract checks
+    lint     — static contract checks (wall-clock/RNG in deterministic
+               seams, chaos-site registry, telemetry naming, journal
+               grammar, broker transactions, retry policy) over the
+               ``repro_torch`` package, plus --spaces search-space audits
+               (every registered problem, built on the CPU); --strict is
+               the CI gate
 
-The JAX package's ``servedb``, ``surrogate`` and ``lint`` come with the
-port of servedb, the surrogate and staticcheck.
+The JAX package's ``servedb`` and ``surrogate`` come with the port of
+servedb and the surrogate.
 
 Problems are the port's eight kernels (``gemm_h100`` ...
 ``flash_attention_h100``) and two toys.  A kernel problem runs on the card
@@ -89,6 +96,10 @@ Campaign state health (read-only; exit 1 when problems are found)::
 
     python -m repro_torch.orchestrator doctor --store experiments/sessions \\
         --broker experiments/queue.db --json
+
+Contract checks and space audits, on any host (exit 1 on a finding)::
+
+    python -m repro_torch.orchestrator lint --strict --spaces
 
 Chaos engineering: ``--chaos PLAN.json`` (or ``REPRO_CHAOS``) arms the
 deterministic fault-injection plane — seeded schedules of worker
@@ -568,8 +579,35 @@ def main(argv: list[str] | None = None) -> int:
     p_dr.add_argument("--broker", default=None,
                       help="broker db: also check leases, failed jobs and "
                            "metrics-table sanity")
+    p_dr.add_argument("--lint", action="store_true",
+                      help="also run the staticcheck contract rules over "
+                           "the installed repro_torch package and fold "
+                           "findings into the problem list")
     p_dr.add_argument("--json", action="store_true",
                       help="emit the full report as one JSON object")
+
+    p_li = sub.add_parser(
+        "lint",
+        help="static contract checks + search-space audit")
+    p_li.add_argument("paths", nargs="*", metavar="PATH",
+                      help="files/directories to lint (default: the "
+                           "installed repro_torch package)")
+    p_li.add_argument("--strict", action="store_true",
+                      help="exit 1 on any non-baselined finding (CI gate); "
+                           "default is advisory (always exit 0)")
+    p_li.add_argument("--baseline", default=None, metavar="JSON",
+                      help="tolerate the findings recorded in this "
+                           "baseline file, report only new ones")
+    p_li.add_argument("--write-baseline", default=None, metavar="JSON",
+                      help="record the current findings to JSON and exit 0 "
+                           "(how a baseline is [re]generated)")
+    p_li.add_argument("--spaces", action="store_true",
+                      help="also audit every registered problem's search "
+                           "space, built on the CPU (dead values, "
+                           "unsatisfiable/redundant constraints, Hamming-1 "
+                           "connectivity)")
+    p_li.add_argument("--json", action="store_true",
+                      help="machine-readable output")
 
     args = ap.parse_args(argv)
 
@@ -601,6 +639,87 @@ def _problem_kwargs(args) -> dict:
     if args.device is not None:
         out["device"] = args.device
     return out
+
+
+def _run_lint(args) -> int:
+    """``lint`` subcommand body: contract checks (+ space audit)."""
+    from pathlib import Path
+
+    from ..staticcheck import (Engine, apply_baseline, default_rules,
+                               load_baseline, write_baseline)
+    from .doctor import _package_dir
+    if args.paths:
+        paths = [Path(p) for p in args.paths]
+        root = Path.cwd()
+    else:
+        # default: the installed port package itself, wherever it lives
+        pkg = _package_dir()
+        paths, root = [pkg], pkg.parent
+
+    engine = Engine(default_rules(), root=root)
+    findings = engine.lint_paths(paths)
+    if args.write_baseline:
+        write_baseline(args.write_baseline, findings)
+        print(f"lint: baseline with {len(findings)} finding(s) "
+              f"written to {args.write_baseline}")
+        return 0
+    if args.baseline:
+        findings = apply_baseline(findings, load_baseline(args.baseline))
+
+    audits = []
+    if args.spaces:
+        from ..staticcheck import audit_space
+        from .registry import PROBLEM_PATHS, make_problem, problem_names
+        for name in problem_names():
+            # a kernel problem defaults to the card; its space is the same
+            # on the CPU, so the audit runs on any host
+            kw = {"device": "cpu"} if name in PROBLEM_PATHS else {}
+            audits.append(audit_space(make_problem(name, **kw).space))
+
+    bad_audits = [a for a in audits if not a.ok]
+    if args.json:
+        print(json.dumps(
+            {"findings": [f.to_json() for f in findings],
+             "spaces": [a.to_json() for a in audits],
+             "ok": not findings and not bad_audits},
+            separators=(",", ":")))
+    else:
+        for f in findings:
+            print(f.render())
+        for a in audits:
+            print(a.render())
+        n = len(findings) + len(bad_audits)
+        print(f"lint: {len(findings)} finding(s)"
+              + (f", {len(bad_audits)}/{len(audits)} space(s) failing"
+                 if audits else "")
+              + ("" if n else " — clean"))
+    if args.strict and (findings or bad_audits):
+        return 1
+    return 0
+
+
+def _start_measuring_early(problems: list[str], archs: list[str],
+                           problem_kwargs: dict, mode: str) -> None:
+    """Where a session will time a kernel on the card, spawn its measuring
+    process before this process imports torch to build the problem
+    (``workers.start_early``): each process's start is mostly ``import
+    torch``, and the two then run side by side.  Decided from names and,
+    for whether the host has a card at all, its NVIDIA device nodes, so
+    nothing here imports torch."""
+    import glob
+
+    from ..core.costmodel import ARCH_NAMES
+    from ..telemetry import trace as trace_mod
+    from .registry import PROBLEM_PATHS
+    from .workers import start_early
+    device = str(problem_kwargs.get("device") or "cuda")
+    if (mode == "thread" or not device.startswith("cuda")
+            or not glob.glob("/dev/nvidia[0-9]*")
+            or not any(p in PROBLEM_PATHS for p in problems)
+            or all(a in ARCH_NAMES or a == "cpu" for a in archs)):
+        return
+    _, _, index = device.partition(":")
+    start_early(int(index) if index else None, trace_mod.is_enabled())
 
 
 def _drain_signals(note: str):
@@ -688,6 +807,9 @@ def _dispatch(args) -> int:
         print(json.dumps(events, separators=(",", ":")))
         return 0
 
+    if args.cmd == "lint":
+        return _run_lint(args)
+
     store = SessionStore(args.store)
 
     if args.cmd == "doctor":
@@ -704,7 +826,7 @@ def _dispatch(args) -> int:
                       file=sys.stderr)
                 return 2
             broker = SQLiteBroker(args.broker)
-        report = diagnose(store, broker)
+        report = diagnose(store, broker, lint=args.lint)
         if args.json:
             print(json.dumps(report, separators=(",", ":")))
         else:
@@ -751,6 +873,8 @@ def _dispatch(args) -> int:
                            problem_kwargs=problem_kwargs)
         sid = store.create(spec)
         print(f"session {sid}")
+        _start_measuring_early([spec.problem], [spec.arch],
+                               spec.problem_kwargs, args.mode)
         res = run_session(spec, store=store, mode=args.mode,
                           max_retries=args.max_retries,
                           stop_after=args.stop_after)
@@ -792,6 +916,9 @@ def _dispatch(args) -> int:
                 return 2
             from .broker import SQLiteBroker
             broker = SQLiteBroker(args.broker)
+        else:
+            _start_measuring_early(problems, archs, problem_kwargs,
+                                   args.mode)
         camp = Campaign.grid(problems=problems, tuners=tuners, archs=archs,
                              seeds=seeds, budget=args.budget,
                              workers=args.workers, tuner_kwargs=tuner_kwargs,
@@ -811,6 +938,9 @@ def _dispatch(args) -> int:
             print(f"error: no session {args.session!r} in {store.root}",
                   file=sys.stderr)
             return 2
+        spec = store.load_spec(args.session)
+        _start_measuring_early([spec.problem], [spec.arch],
+                               spec.problem_kwargs, "auto")
         res = resume_session(args.session, store, workers=args.workers)
         b = res.best
         print(f"session {args.session}: {len(res.trials)} trials; "

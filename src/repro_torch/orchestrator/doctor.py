@@ -16,9 +16,13 @@ it only reads.  Checks:
   ``lease``/``collect`` reaps, so a persistently stale lease means no
   driver or worker is touching the queue), failed jobs, and
   metrics-table sanity (finite values, known kinds).
-The JAX package's find-DB triage (``--servedb``) and contract lint
-(``--lint``) come to the port with servedb and staticcheck; the report
-keeps their keys, as ``None``.
+* **Contracts** (``--lint``) — run the :mod:`repro_torch.staticcheck` rule
+  engine over the installed ``repro_torch`` package and fold any findings
+  into the problem list, so an on-call triage also surfaces contract drift
+  in the deployed code (see "Checked contracts" in docs/architecture.md).
+
+The JAX package's find-DB triage (``--servedb``) comes to the port with
+servedb; the report keeps its key, as ``None``.
 
 Everything lands in one report dict (``--json``); exit status 1 when
 problems were found, 0 when clean.
@@ -60,11 +64,14 @@ def _scan_journal(path: Path) -> dict:
     return out
 
 
-def diagnose(store: SessionStore, broker: Broker | None = None) -> dict:
+def diagnose(store: SessionStore, broker: Broker | None = None,
+             lint: bool = False) -> dict:
     """Inspect ``store`` (and optionally ``broker``); returns the report:
     ``{"sessions": [...], "broker": {...}|None, "servedb": None,
-    "lint": None, "problems": [...], "ok": bool}``.  Read-only — never
-    reaps, pops, quarantines, or mutates."""
+    "lint": {...}|None, "problems": [...], "ok": bool}``.  Read-only —
+    never reaps, pops, quarantines, or mutates.  ``lint=True``
+    additionally runs the staticcheck contract rules over the installed
+    ``repro_torch`` package."""
     problems: list[str] = []
 
     # sessions whose batches are in flight on the fleet right now
@@ -150,10 +157,25 @@ def diagnose(store: SessionStore, broker: Broker | None = None) -> dict:
                          "metric_workers": len(workers),
                          "bad_metric_samples": bad_samples}
 
+    lint_report = None
+    if lint:
+        from ..staticcheck import Engine, default_rules
+        pkg = _package_dir()
+        findings = Engine(default_rules(), root=pkg.parent).lint_paths([pkg])
+        lint_report = {"findings": [f.to_json() for f in findings]}
+        problems.extend(f"lint: {f.render()}" for f in findings)
+
     return {"store": str(store.root), "generated_at": time.time(),
             "sessions": sessions, "broker": broker_report,
-            "servedb": None, "lint": None,
+            "servedb": None, "lint": lint_report,
             "problems": problems, "ok": not problems}
+
+
+def _package_dir() -> Path:
+    """The installed ``repro_torch`` package's directory: what ``lint``
+    and ``doctor --lint`` scan by default."""
+    import repro_torch
+    return Path(next(iter(repro_torch.__path__)))
 
 
 def render_report(report: dict) -> str:
@@ -182,6 +204,10 @@ def render_report(report: dict) -> str:
             f"leased {c.get('leased', 0)} done {c.get('done', 0)} "
             f"failed {c.get('failed', 0)}; stale leases "
             f"{b['stale_leases']}; {b['metric_workers']} metric worker(s)")
+    if report.get("lint") is not None:
+        n = len(report["lint"]["findings"])
+        lines.append(f"  lint: {n} contract finding(s)"
+                     + ("" if n else " — clean"))
     if report["problems"]:
         lines.append(f"problems ({len(report['problems'])}):")
         lines.extend(f"  - {p}" for p in report["problems"])

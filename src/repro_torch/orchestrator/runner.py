@@ -44,10 +44,10 @@ requests faithfully produces the identical trajectory and journal:
 The stepper/EvalRequest protocol and its determinism guarantees are
 documented as a stable contract in ``docs/architecture.md``.
 
-The surrogate's two seams are not in the port yet (ROADMAP, the servedb
-and surrogate item): :class:`SessionSpec` keeps ``warm_start`` so session
-ids match the JAX package's, but a spec that sets it, and a ``screen=``
-argument, are refused with a :class:`ValueError` rather than ignored.
+A spec's ``warm_start`` rows are installed on the tuner
+(:meth:`Tuner.set_warm_start`) and proposed before its own asks.  The
+surrogate screen is not in the port yet: a ``screen=`` argument is refused
+with a :class:`ValueError` rather than ignored.
 """
 
 from __future__ import annotations
@@ -111,17 +111,16 @@ def resolve_session(spec: SessionSpec,
                            f"registered: {', '.join(sorted(TUNERS))}")
         tuner = TUNERS[spec.tuner](problem.space, seed=spec.seed,
                                    **spec.tuner_kwargs)
-    _refuse_surrogate(spec)
+    if spec.warm_start:
+        # the spec stores resolved rows (not a model reference), so resumed
+        # and fresh runs install the identical warm queue
+        tuner.set_warm_start(spec.warm_start)
     return problem, tuner
 
 
-def _refuse_surrogate(spec: SessionSpec, screen=None) -> None:
-    """The port's tuners have no warm-start seam and there is no surrogate
-    screen yet: refuse either rather than run a different session."""
-    if spec.warm_start is not None:
-        raise ValueError(
-            f"{spec.session_id}: warm_start needs the surrogate's warm-start "
-            "seam (Tuner.set_warm_start), which the port does not have yet")
+def _refuse_screen(screen) -> None:
+    """There is no surrogate screen in the port yet: refuse one rather
+    than run a different session."""
     if screen is not None:
         raise ValueError("screen= needs the surrogate's SurrogateScreen, "
                          "which the port does not have yet")
@@ -140,10 +139,10 @@ def session_stepper(spec: SessionSpec, *, problem: TunableProblem,
     and may throw an exception into the generator to abort — the session
     is then marked FAILED with its journal intact, like any crash.
 
-    ``screen`` is refused (:func:`_refuse_surrogate`): the port has no
+    ``screen`` is refused (:func:`_refuse_screen`): the port has no
     surrogate screen yet.
     """
-    _refuse_surrogate(spec, screen)
+    _refuse_screen(screen)
     space = problem.space
     space.compile_eagerly()   # one-time table build: mask-backed fast paths
     res = TuneResult(tuner.name, problem.name, spec.arch, spec.seed)
@@ -193,7 +192,7 @@ def session_stepper(spec: SessionSpec, *, problem: TunableProblem,
             n = min(cap, spec.budget - len(res.trials))
             with span("session.ask", cat="session", n=n):
                 if native:
-                    keys = [int(r) for r in tuner.ask_rows(max(1, n))]
+                    keys = [int(r) for r in tuner.propose_rows(max(1, n))]
                     cfgs: list = []
                 else:
                     cfgs = tuner.ask_batch(n)
@@ -254,8 +253,8 @@ def session_stepper(spec: SessionSpec, *, problem: TunableProblem,
                 store.append_trials(sid, space, journal_records)
             with span("session.tell", cat="session", n=len(keys)):
                 if native:
-                    tuner.tell_rows(keys, [t.objective if t.ok else math.inf
-                                           for t in results])
+                    tuner.report_rows(keys, [t.objective if t.ok else math.inf
+                                             for t in results])
                 else:
                     tuner.tell_batch(results)
             for j in range(len(keys)):
@@ -347,7 +346,7 @@ def run_session(spec: SessionSpec, *, problem: TunableProblem | None = None,
     as are ``pool``/``stop_after``/``on_batch`` (monitor via the store's
     ``status`` instead).
     """
-    _refuse_surrogate(spec, screen)
+    _refuse_screen(screen)
     if broker is not None:
         if (pool is not None or stop_after is not None or tuner is not None
                 or problem is not None or on_batch is not None):

@@ -162,14 +162,18 @@ class _FromChild:
         self.pid = pid
 
 
-def _init_worker(slots, cards: list[int], tracing: bool) -> None:
+def _init_worker(slots, cards: list[int] | None, tracing: bool) -> None:
     """Process-pool initializer: take the next slot and, with ``cards``
-    (device indices), pin this process to ``cards[slot mod len(cards)]``
-    before anything touches CUDA; record spans when the parent does."""
+    (device indices; ``None``: every card visible here), pin this process
+    to ``cards[slot mod len(cards)]`` before anything touches CUDA; record
+    spans when the parent does."""
     global _DEVICE
     with slots.get_lock():
         slot = slots.value
         slots.value += 1
+    if cards is None:
+        import torch
+        cards = list(range(torch.cuda.device_count()))
     if cards:
         import torch
         _DEVICE = cards[slot % len(cards)]
@@ -252,6 +256,49 @@ def _landed(result):
     return result
 
 
+#: a measuring process started before this process built its problem
+#: (:func:`start_early`): (executor, the card it pins, whether it traces)
+_EARLY: tuple[ProcessPoolExecutor, int | None, bool] | None = None
+
+
+def start_early(card: int | None, tracing: bool) -> None:
+    """Spawn one measuring process now, pinned to ``card`` (``None``: the
+    first visible card, where a pool of one process on a card pins it), so
+    that its start (interpreter, ``import torch``, the CUDA context) runs
+    while this process imports torch to build its problem, not after.  The
+    first :class:`WorkerPool` whose measuring executor is one process on
+    that card, tracing as ``tracing`` says, adopts it; any other shuts it
+    down.  What the process measures is unchanged: the same pinning, the
+    same problem pickled to it with its first job."""
+    global _EARLY
+    ctx = multiprocessing.get_context("spawn")
+    ex = ProcessPoolExecutor(
+        max_workers=1, mp_context=ctx, initializer=_init_worker,
+        initargs=(ctx.Value("i", 0), None if card is None else [card],
+                  tracing))
+    ex.submit(int)            # a pool spawns its process with its first job
+    _EARLY = (ex, card, tracing)
+
+
+def _adopt_early(n: int, cards: list[int],
+                 tracing: bool) -> ProcessPoolExecutor | None:
+    """The early process's executor, if it is the one a pool of ``n``
+    processes pinned to ``cards`` would build; else ``None``, and the early
+    process is shut down."""
+    global _EARLY
+    if _EARLY is None:
+        return None
+    ex, card, early_tracing = _EARLY
+    _EARLY = None
+    if (n == 1 and cards and cards[0] == (0 if card is None else card)
+            and tracing == early_tracing):
+        print("worker pool: adopted the measuring process started before "
+              "the problem was built", file=sys.stderr, flush=True)
+        return ex
+    ex.shutdown(wait=False, cancel_futures=True)
+    return None
+
+
 class WorkerPool:
     """Evaluates batches of configs for one problem on one arch (both
     overridable per call for shared campaign pools).
@@ -321,10 +368,15 @@ class WorkerPool:
             else:
                 cards = (measuring_cards(problem)
                          if measures(problem, arch or self.arch) else [])
-                ctx = multiprocessing.get_context("spawn")
-                self._exs[mode] = ProcessPoolExecutor(
-                    max_workers=n, mp_context=ctx, initializer=_init_worker,
-                    initargs=(ctx.Value("i", 0), cards, trace.is_enabled()))
+                ex = _adopt_early(n, cards, trace.is_enabled())
+                if ex is None:
+                    ctx = multiprocessing.get_context("spawn")
+                    ex = ProcessPoolExecutor(
+                        max_workers=n, mp_context=ctx,
+                        initializer=_init_worker,
+                        initargs=(ctx.Value("i", 0), cards,
+                                  trace.is_enabled()))
+                self._exs[mode] = ex
         return self._exs[mode]
 
     def _rebuild(self, mode: str, problem: TunableProblem | None = None,

@@ -77,7 +77,16 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.orchestrator.session",
             "repro_torch.orchestrator.store",
             "repro_torch.orchestrator.supervisor",
-            "repro_torch.orchestrator.workers"} <= set(got["modules"])
+            "repro_torch.orchestrator.workers",
+            "repro_torch.core.tuners.local_search",
+            "repro_torch.core.tuners.annealing",
+            "repro_torch.core.tuners.diffevo",
+            "repro_torch.core.tuners.pso",
+            "repro_torch.core.tuners.surrogate_bo",
+            "repro_torch.staticcheck",
+            "repro_torch.staticcheck.engine",
+            "repro_torch.staticcheck.rules",
+            "repro_torch.staticcheck.spaceaudit"} <= set(got["modules"])
     assert got["bad"] == [], f"repro_torch loaded {got['bad']}"
 
 

@@ -250,3 +250,68 @@ def test_landscape_measures_nbody_whole_on_the_host():
     assert 1 <= out["n90"] <= out["n99"] <= n
     assert list(out["pfi"]) == list(prob.space.param_names)
     assert out["table8"]["constrained"] == n
+
+
+def _reference_comparison(jsp, jt) -> dict:
+    """The tuner comparison recomputed with the JAX package's tuners."""
+    objs = {jsp.flat_index(jsp.decode(c)): o
+            for c, o in zip(jt.configs, jt.objectives)}
+    best = min(o for o in objs.values() if math.isfinite(o))
+    jp = jproblem.FunctionProblem(jsp, lambda c, a: objs[jsp.flat_index(c)])
+    out = {}
+    for name, cls in jtuners.TUNERS.items():
+        budget, seeds = landscape.COMPARE_CAPS.get(
+            name, (landscape.COMPARE_BUDGET, landscape.COMPARE_SEEDS))
+        runs = []
+        for seed in seeds:
+            share = [best / b for b in jtuners.run_tuner(
+                cls(jsp, seed=seed), jp, budget, arch=ARCH).best_curve()]
+            runs.append([next((i + 1 for i, v in enumerate(share)
+                               if v >= lv), math.inf) for lv in (0.9, 0.99)]
+                        + [share[-1]])
+        out[name] = [float(np.median([r[i] for r in runs]))
+                     for i in range(3)]
+    return out
+
+
+def test_tuner_comparison_is_the_references(case, monkeypatch):
+    """Every tuner over a whole table, answered from it: the port's
+    numbers are the JAX package's tuners' on the same table."""
+    monkeypatch.setattr(landscape, "COMPARE_BUDGET", 60)
+    monkeypatch.setattr(landscape, "COMPARE_SEEDS", (0, 1, 2))
+    monkeypatch.setattr(landscape, "COMPARE_CAPS",
+                        {"surrogate_bo": (30, (0, 1))})
+    jsp, tsp, jt, tt = case
+    got = landscape.compare_tuners(tproblem.FunctionProblem(
+        tsp, lambda c, a: 0.0, name=tsp.name), tt)
+    assert list(got) == list(ttuners.TUNERS)
+    want = _reference_comparison(jsp, jt)
+    assert {k: [r["n90"], r["n99"], r["share"]] for k, r in got.items()} \
+        == want
+    for r in got.values():
+        assert r["n90"] <= r["n99"] and 0.0 < r["share"] <= 1.0
+        assert len(r["runs"]) == len(r["seeds"])
+
+
+def test_tuner_comparison_on_the_models_table(monkeypatch, capsys):
+    """On the cost model's whole pnpoly table at the small shape: every
+    tuner, its budget and seeds as set, the table printed; a sampled table
+    is refused."""
+    monkeypatch.setattr(landscape, "COMPARE_BUDGET", 40)
+    monkeypatch.setattr(landscape, "COMPARE_SEEDS", (0, 1))
+    monkeypatch.setattr(landscape, "COMPARE_CAPS",
+                        {"surrogate_bo": (20, (0,))})
+    from repro_torch.kernels.pnpoly.space import PnpolyProblem
+    prob = PnpolyProblem(shape=PnpolyProblem.small_shape, device="cpu")
+    table = tresults.ResultTable.from_trials(
+        prob, "h100sxm", prob.exhaustive("h100sxm"), "exhaustive")
+    comp = landscape.compare_tuners(prob, table)
+    assert list(comp) == list(ttuners.TUNERS)
+    assert comp["surrogate_bo"]["budget"] == 20
+    assert comp["random"]["seeds"] == [0, 1]
+    landscape.print_comparison(prob.name, comp)
+    assert "tuners on pnpoly_h100's whole table" in capsys.readouterr().out
+    with pytest.raises(ValueError, match="whole table"):
+        landscape.compare_tuners(prob, tresults.ResultTable(
+            problem=prob.name, arch="cpu", param_names=[], configs=[],
+            objectives=[], protocol="sampled:10:0"))

@@ -5,7 +5,8 @@ parallel == serial; exact resume; the chaos plane and retry delays; the
 brokers' lease protocol; the CLI; the kernel problems measured on the host
 in spawned worker processes; the campaign that mixes the measured arch with
 the cost model's; and what the port refuses (a session with no card and no
-``--device``, the surrogate's seams)."""
+``--device``, the surrogate screen); and every tuner's session stopped and
+resumed, cold and warm-started."""
 
 from __future__ import annotations
 
@@ -46,7 +47,11 @@ from torch_toys import WorkerKiller  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 TOYS = ("toy_quad", "toy_rastrigin")
-PORT_TUNERS = sorted(TUNERS)             # random, grid, genetic
+PORT_TUNERS = sorted(TUNERS)             # all eight
+#: the tuners whose ask stream does not depend on the batch width: their
+#: sessions replay ``run_tuner`` exactly (the population tuners switch to
+#: generational batches)
+BATCH_INVARIANT = ("random", "grid", "local", "annealing", "surrogate_bo")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -139,8 +144,8 @@ def _quad(record=None):
 @pytest.mark.parametrize("workers", [1, 3, 8])
 @pytest.mark.parametrize("tuner", PORT_TUNERS)
 def test_parallel_session_equals_serial(tuner, workers):
-    """Any worker count replays one trajectory; the ask-independent tuners
-    (random, grid) replay ``run_tuner``'s exactly."""
+    """Any worker count replays one trajectory; the batch-invariant tuners
+    replay ``run_tuner``'s exactly."""
     prob = _quad()
     spec = port.SessionSpec(problem="quad", tuner=tuner, budget=40, seed=3,
                             workers=workers)
@@ -149,7 +154,7 @@ def test_parallel_session_equals_serial(tuner, workers):
                                             budget=40, seed=3, workers=1),
                            problem=prob)
     assert _trace_of(par) == _trace_of(one)
-    if tuner != "genetic":
+    if tuner in BATCH_INVARIANT:
         serial = run_tuner(TUNERS[tuner](prob.space, seed=3), prob,
                            budget=40, arch="h100")
         assert _trace_of(par) == _trace_of(serial)
@@ -373,25 +378,67 @@ def test_module_entry_point_is_guarded():
                         "--help"], env=env, capture_output=True, text=True,
                        timeout=120)
     assert r.returncode == 0 and "campaign" in r.stdout
-    for gone in ("servedb", "surrogate", "lint"):
+    for gone in ("servedb", "surrogate"):
         assert gone not in r.stdout.split("positional")[0]
+    assert "lint" in r.stdout.split("positional")[0]
 
 
 # --------------------------------------------------------------------- #
-# the surrogate's seams are refused, not ignored
+# the warm start runs; the surrogate screen is refused, not ignored
 # --------------------------------------------------------------------- #
 def test_warm_start_and_screen_are_refused():
+    """The name is older than the warm-start seam: a spec's ``warm_start``
+    now runs (the JAX package's session, journal and table, warm rows
+    first); a ``screen=`` is still refused."""
     spec = port.SessionSpec(problem="toy_quad", tuner="random", budget=8,
                             warm_start=[1, 2])
     assert "warm_start" in spec.canonical()
-    assert spec.session_id == ref.SessionSpec(
-        problem="toy_quad", tuner="random", budget=8, arch="h100",
-        warm_start=[1, 2]).session_id
-    with pytest.raises(ValueError, match="warm_start"):
-        port.run_session(spec)
+    rspec = ref.SessionSpec(problem="toy_quad", tuner="random", budget=8,
+                            arch="h100", warm_start=[1, 2])
+    assert spec.session_id == rspec.session_id
+    res = port.run_session(spec)
+    assert _trace_of(res) == _trace_of(ref.run_session(rspec))
+    space = port.make_problem("toy_quad").space
+    assert [space.flat_index(t.config) for t in res.trials[:2]] == [1, 2]
     plain = port.SessionSpec(problem="toy_quad", tuner="random", budget=8)
     with pytest.raises(ValueError, match="screen"):
         port.run_session(plain, screen=object())
+
+
+@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
+@pytest.mark.parametrize("tuner", ["local", "annealing", "diffevo", "pso",
+                                   "surrogate_bo"])
+def test_new_tuner_session_stops_and_resumes_as_the_jax_packages(
+        tuner, warm, tmp_path):
+    """Each tuner the warm-start seam came with, cold and warm-started on
+    a toy: stopped at a batch boundary and resumed, the journal is the
+    uninterrupted run's byte for byte, and both are the JAX package's."""
+    space = port.make_problem("toy_quad").space
+    opt = space.flat_index({f"p{i}": 2 for i in range(4)})
+    kw = dict(problem="toy_quad", tuner=tuner, arch="h100sxm", budget=24,
+              seed=11, workers=2,
+              warm_start=[opt + 3, opt, opt + 3, opt + 16] if warm else None)
+    pspec, rspec = port.SessionSpec(**kw), ref.SessionSpec(**kw)
+    assert pspec.session_id == rspec.session_id
+    full = port.run_session(pspec, store=port.SessionStore(
+        tmp_path / "full", clock=lambda: 0.0))
+    cut = port.SessionStore(tmp_path / "cut", clock=lambda: 0.0)
+    part = port.run_session(pspec, store=cut, stop_after=5)
+    assert cut.meta(pspec.session_id)["status"] == "interrupted"
+    assert len(part.trials) < 24
+    resumed = port.resume_session(pspec.session_id, cut)
+    assert _trace_of(resumed) == _trace_of(full)
+    journal = (tmp_path / "cut" / pspec.session_id / "trials.jsonl")
+    assert journal.read_bytes() == (tmp_path / "full" / pspec.session_id
+                                    / "trials.jsonl").read_bytes()
+    r = ref.run_session(rspec, store=ref.SessionStore(
+        tmp_path / "ref", clock=lambda: 0.0))
+    assert _trace_of(r) == _trace_of(full)
+    assert journal.read_bytes() == (tmp_path / "ref" / rspec.session_id
+                                    / "trials.jsonl").read_bytes()
+    if warm:
+        assert [space.flat_index(t.config) for t in full.trials[:3]] \
+            == [opt + 3, opt, opt + 16]
 
 
 # --------------------------------------------------------------------- #
@@ -654,3 +701,82 @@ def test_quoted_command_matches_the_cli(cmd, capsys):
     for flag in re.findall(r"(--[a-z][a-z0-9-]*)", cmd):
         assert flag in help_text, f"{flag} quoted but {sub!r} lacks it"
     assert len(QUOTED) >= 10
+
+
+# --------------------------------------------------------------------- #
+# a measuring process started before the parent builds its problem
+# --------------------------------------------------------------------- #
+def test_an_early_measuring_process_is_adopted(monkeypatch, capsys):
+    """``start_early`` spawns the process a pool of one on the first card
+    would build; the pool adopts it and measures through it (on the host
+    the child finds no card and pins nothing, so the cards are faked)."""
+    monkeypatch.setattr(port_workers, "measuring_cards", lambda p: [0])
+    prob = GemmProblem(**_kernel_kwargs(GemmProblem))
+    port_workers.start_early(None, trace.is_enabled())
+    early = port_workers._EARLY[0]
+    pool = port_workers.WorkerPool(prob, "cpu", workers=4)
+    try:
+        got = pool.evaluate(prob.space.sample_distinct(3, 0))
+        assert pool._exs["process"] is early
+        assert port_workers._EARLY is None
+        assert len(got) == 3 and all(t.ok for t in got)
+    finally:
+        pool.close()
+    assert "adopted the measuring process" in capsys.readouterr().err
+
+
+class _FakeExecutor:
+    def __init__(self):
+        self.shut = False
+
+    def shutdown(self, wait=True, cancel_futures=False):
+        self.shut = True
+
+
+@pytest.mark.parametrize("early_card,tracing,n,cards,adopted", [
+    (None, False, 1, [0], True), (None, False, 1, [0, 1], True),
+    (1, False, 1, [1], True), (None, True, 1, [0], False),
+    (None, False, 2, [0, 1], False), (1, False, 1, [0, 1], False),
+    (None, False, 1, [], False)])
+def test_an_early_process_only_a_matching_pool_adopts(
+        early_card, tracing, n, cards, adopted, monkeypatch):
+    """Adopted only by a pool of one process pinned to the early one's card
+    and tracing as it does; otherwise shut down, never kept."""
+    ex = _FakeExecutor()
+    monkeypatch.setattr(port_workers, "_EARLY", (ex, early_card, tracing))
+    got = port_workers._adopt_early(n, cards, False)
+    assert (got is ex) == adopted and ex.shut == (not adopted)
+    assert port_workers._EARLY is None
+
+
+def test_the_cli_starts_a_measuring_process_early_only_to_measure(
+        monkeypatch, tmp_path):
+    """``submit``, ``resume`` and ``campaign`` start one where a kernel is
+    timed on a card: not for the model's ids, ``--device cpu``, a toy,
+    ``--mode thread`` or a host with no NVIDIA device."""
+    from repro_torch.orchestrator import cli as port_cli_mod
+    calls: list = []
+    nodes = ["/dev/nvidia0"]
+    monkeypatch.setattr("glob.glob", lambda pat: list(nodes))
+    monkeypatch.setattr(port_workers, "start_early",
+                        lambda card, tracing: calls.append(card))
+    early = port_cli_mod._start_measuring_early
+    early(["gemm_h100"], ["h100"], {}, "auto")
+    early(["gemm_h100"], ["h100"], {"device": "cuda:1"}, "process")
+    early(["flash_attention_h100"], ["h100", "h100sxm"], {"device": "cuda"},
+          "auto")
+    assert calls == [None, 1, None]
+    for args in ((["gemm_h100"], ["h100sxm", "h100pcie"], {}, "auto"),
+                 (["gemm_h100"], ["cpu"], {"device": "cpu"}, "auto"),
+                 (["toy_quad"], ["h100"], {}, "auto"),
+                 (["gemm_h100"], ["h100"], {}, "thread")):
+        early(*args)
+    nodes.clear()
+    early(["gemm_h100"], ["h100"], {}, "auto")
+    assert calls == [None, 1, None]
+    # the CLI's submit asks for it before it builds the problem
+    monkeypatch.setattr(port_cli_mod, "_start_measuring_early",
+                        lambda *a: calls.append(a))
+    port_cli(["submit", "--problem", "toy_quad", "--tuner", "random",
+              "--budget", "4", "--store", str(tmp_path)])
+    assert calls[-1] == (["toy_quad"], ["h100"], {}, "auto")

@@ -101,3 +101,23 @@ def test_gemm_h100_audits_clean(shape):
     assert rep.ok, rep.render()
     assert not checks & {"unsatisfiable", "dead-value", "disconnected"}
     assert rep.n_components == 1
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+def test_neighbour_draws(pair, seed):
+    """The row-native neighbour moves the tuners walk with: the legacy
+    rejection draw, the alias tables and the alias draw are the JAX
+    package's, draw for draw."""
+    import random
+    _, _, jc, tc = pair
+    assert np.array_equal(jc.edge_params(), tc.edge_params())
+    for a, b in zip(jc.neighbor_alias(), tc.neighbor_alias()):
+        assert np.array_equal(a, b)
+    jr, tr = random.Random(seed), random.Random(seed)
+    rows = tc.valid_rows[np.random.default_rng(seed).integers(
+        0, len(tc.valid_rows), 100)].tolist()
+    for r in rows:
+        assert tc.random_neighbor_row(r, tr) == jc.random_neighbor_row(r, jr)
+        assert tc.sample_neighbor_alias(r, tr) \
+            == jc.sample_neighbor_alias(r, jr)
+    assert tr.random() == jr.random()
