@@ -106,8 +106,9 @@ Phases, each timed:
                measured whole.  A config the model cannot run, or a pick
                that fails, fails the run.
 8. orchestrator — the session layer, each step a run of its entry point
-               ``python -m repro_torch.orchestrator`` with a temporary store
-               and ``--trace`` (``orchestrator_check``): a GEMM random
+               ``python -m repro_torch.orchestrator`` with one temporary
+               store (kept for phase 10) and ``--trace``
+               (``orchestrator_check``): a GEMM random
                search (seed 0, budget 60, 4 workers asked) stopped at the
                first batch boundary past 30 and resumed (interrupted, then
                done; a journal line a trial; the resumed run measures only
@@ -143,6 +144,30 @@ Phases, each timed:
                evaluations to 90 % and 99 % of the table's best and the
                share reached at the budget (``tuners_launches`` in GEMM's
                line of the ``kernels`` line).
+10. servedb  — the serving layer and the surrogate over this run's own
+               tables (``servedb_check``, no new landscape): ``servedb
+               build`` and ``servedb verify`` over phase 8's store (entries
+               per kernel and arch); lookups under ``h100``: GEMM at
+               4096^3 (exact, the session's best), at 2048^3 (nearest),
+               attention at its shape (exact, its sessions' best), conv2d
+               (no session: the cost model's pick, the lookup launching
+               nothing) and an unknown name (``{}``), each answer the
+               space admits at its shape launched there and held against
+               its plain version (the exact GEMM answer's median within 5 %
+               of the session's); the surrogate on conv2d (its measured
+               table beside the cost model's whole tables under h100sxm
+               and h100pcie: fitted with h100 held out, Spearman's rho and
+               the measured best of its top 8 as a share of the table's
+               best; refitted on all rows into a model store that
+               verifies); a screened GEMM session (genetic, seed 0, budget
+               40, a quarter measured; its model on GEMM's cost-model
+               tables and phase 4's measured trials): GEMM's launches up
+               by exactly 7 a measured trial and none an estimated one, its
+               harvest taking no estimated row; and ``submit --warm-start
+               M --warm-top 8 --budget 16``, whose first 8 journal rows are
+               the model's top 8 (``servedb_launches``,
+               ``screen_launches`` and ``warm_start_launches`` in the
+               ``kernels`` line).
 
 Prints the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  A kernel's ``launches`` counts its wrapper's calls on its path;
@@ -161,6 +186,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from contextlib import contextmanager
 from pathlib import Path
@@ -525,11 +551,80 @@ def model_check(paths: dict, gemm_trials, defaults: dict, default_s: dict,
     return {"problems": cm, "portability": fig5}
 
 
+def orchestrator_cli(*argv) -> tuple[str, float]:
+    """Run ``python -m repro_torch.orchestrator *argv`` to its end: its
+    standard output and its seconds; any exit but 0 ends the run."""
+    return finish_cli(start_cli(*argv), argv)
+
+
+def start_cli(*argv) -> tuple[subprocess.Popen, float]:
+    """Start ``python -m repro_torch.orchestrator *argv`` with the
+    checkout's ``src`` on the path; :func:`finish_cli` waits for it."""
+    import os
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    p = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.orchestrator", *argv], cwd=ROOT,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return p, time.perf_counter()
+
+
+def finish_cli(started: tuple[subprocess.Popen, float],
+               argv) -> tuple[str, float]:
+    p, t0 = started
+    try:
+        out, err = p.communicate(timeout=900)
+    except subprocess.TimeoutExpired:
+        p.kill()
+        p.communicate()
+        raise SystemExit(f"chip_smoke: orchestrator {' '.join(argv)} "
+                         f"timed out")
+    dt = time.perf_counter() - t0
+    if p.returncode != 0:
+        raise SystemExit(f"chip_smoke: orchestrator {' '.join(argv)} "
+                         f"exited {p.returncode}:\n{out[-3000:]}\n"
+                         f"{err[-6000:]}")
+    for line in err.splitlines():
+        if line.startswith("worker pool:"):
+            print(f"  {argv[0]}: {line}")
+    return out, dt
+
+
+def trace_spans(path: Path) -> list[dict]:
+    """The spans of a ``--trace`` JSONL file."""
+    return [r for r in map(json.loads, path.read_text().splitlines())
+            if "name" in r]
+
+
+def span_launches(sp: list[dict]) -> dict[str, int]:
+    """Kernel launches the measuring processes report in their pool spans
+    (``pool.chunk``/``pool.retry``), by kernel."""
+    tot: dict[str, int] = {}
+    for r in sp:
+        if r["name"] in ("pool.chunk", "pool.retry"):
+            for k, n in r.get("args", {}).get("launches", {}).items():
+                tot[k] = tot.get(k, 0) + n
+    return tot
+
+
+def journal_records(store: Path, sid: str) -> list[dict]:
+    lines = (store / sid / "trials.jsonl").read_text().splitlines()
+    return [json.loads(line) for line in lines if line.strip()]
+
+
+def session_id(text: str) -> str:
+    """The id a ``submit`` printed."""
+    return next(line.split()[1] for line in text.splitlines()
+                if line.startswith("session "))
+
+
 def orchestrator_check(gemm, attention, gemm_random,
                        attention_best_s: float, budget: int,
-                       failures: list[str]) -> dict:
+                       failures: list[str], tmp: Path) -> dict:
     """The session layer on the card, each step through the real entry
-    point, ``python -m repro_torch.orchestrator``, with a temporary store:
+    point, ``python -m repro_torch.orchestrator``, with one store under
+    ``tmp`` that the ``servedb`` phase distills afterwards:
 
     1. a GEMM random search at 4096^3 stopped at the first batch boundary
        past half its budget and resumed: interrupted then done, one
@@ -546,37 +641,15 @@ def orchestrator_check(gemm, attention, gemm_random,
 
     ``gemm`` and ``attention`` are the full-shape problems the earlier
     phases built, with the CLI's defaults: each measured config launches
-    its kernel ``warmup + repeats`` times.  Returns what it measured;
-    kernel launches are read from the measuring processes' spans
-    (``pool.chunk``/``pool.retry``), which the trace carries back."""
-    import os
-    import tempfile
-    env = dict(os.environ)
-    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get(
-        "PYTHONPATH", "")
+    its kernel ``warmup + repeats`` times.  Returns what it measured, with
+    the store (``store``) and its sessions (``sessions``: the GEMM
+    session, the attention grid, the campaign's six); kernel launches are
+    read from the measuring processes' spans (``pool.chunk``/
+    ``pool.retry``), which the trace carries back."""
     out: dict = {"steps": {}}
     gemm_space, attention_space = gemm.space, attention.space
     g_per = gemm.warmup + gemm.repeats
     a_per = attention.warmup + attention.repeats
-
-    def cli(*argv) -> tuple[str, float]:
-        t0 = time.perf_counter()
-        p = subprocess.run(
-            [sys.executable, "-m", "repro_torch.orchestrator", *argv],
-            cwd=ROOT, env=env, capture_output=True, text=True, timeout=900)
-        dt = time.perf_counter() - t0
-        if p.returncode != 0:
-            raise SystemExit(f"chip_smoke: orchestrator {' '.join(argv)} "
-                             f"exited {p.returncode}:\n{p.stdout[-3000:]}\n"
-                             f"{p.stderr[-6000:]}")
-        for line in p.stderr.splitlines():
-            if line.startswith("worker pool:"):
-                print(f"  {argv[0]}: {line}")
-        return p.stdout, dt
-
-    def spans(path: Path) -> list[dict]:
-        return [r for r in map(json.loads, path.read_text().splitlines())
-                if "name" in r]
 
     def measured(sp: list[dict]) -> list[dict]:
         return [r for r in sp if r["name"] == "kernel.measure"]
@@ -587,198 +660,181 @@ def orchestrator_check(gemm, attention, gemm_random,
         return sum(r["dur"] for r in sp
                    if r["name"] in ("kernel.build", "kernel.measure")) / 1e6
 
-    def launched(sp: list[dict]) -> dict[str, int]:
-        tot: dict[str, int] = {}
-        for r in sp:
-            if r["name"] in ("pool.chunk", "pool.retry"):
-                for k, n in r.get("args", {}).get("launches", {}).items():
-                    tot[k] = tot.get(k, 0) + n
-        return tot
-
     def status(store: Path) -> dict[str, dict]:
-        text, _ = cli("status", "--store", str(store), "--json")
+        text, _ = orchestrator_cli("status", "--store", str(store), "--json")
         return {r["session"]: r for r in map(json.loads, text.splitlines())}
 
-    def journal(store: Path, sid: str) -> list[dict]:
-        lines = (store / sid / "trials.jsonl").read_text().splitlines()
-        return [json.loads(line) for line in lines if line.strip()]
+    store = tmp / "store"
+    # 1. GEMM: stopped, resumed
+    b1 = min(60, budget)
+    t0 = time.perf_counter()
+    text, s_a = orchestrator_cli(
+        "submit", "--problem", "gemm_h100", "--tuner", "random", "--seed",
+        "0", "--budget", str(b1), "--workers", "4", "--stop-after",
+        str(b1 // 2), "--store", str(store), "--trace", str(tmp / "t1.jsonl"))
+    sid = session_id(text)
+    st1 = status(store)[sid]
+    n1 = len(journal_records(store, sid))
+    text, s_b = orchestrator_cli("resume", sid, "--store", str(store),
+                                 "--trace", str(tmp / "t2.jsonl"))
+    st2 = status(store)[sid]
+    recs = journal_records(store, sid)
+    step1_s = time.perf_counter() - t0
+    sp1, sp2 = trace_spans(tmp / "t1.jsonl"), trace_spans(tmp / "t2.jsonl")
+    m1, m2 = measured(sp1), measured(sp2)
+    pids = [{r["args"]["pid"] for r in m} for m in (m1, m2)]
+    devices = {r.get("i", {}).get("device") for r in recs}
+    cfgs = [gemm_space.from_flat_index(r["k"]) for r in recs]
+    main_cfgs = [t.config for t in gemm_random[:b1]]
+    main_s = {json.dumps(t.config, sort_keys=True): t.objective
+              for t in gemm_random}
+    devs = [abs(r["o"] / main_s[key] - 1.0) for r, c in zip(recs, cfgs)
+            if (key := json.dumps(c, sort_keys=True)) in main_s] or [1.0]
+    per_cfg_ms = (s_a + s_b) / b1 * 1e3
+    g_launch = span_launches(sp1 + sp2)
+    print(f"  gemm session {sid}: {st1['status']} "
+          f"{st1['evaluated']}/{st1['budget']} ({n1} journal lines), "
+          f"then {st2['status']} {st2['evaluated']}/{st2['budget']} "
+          f"({len(recs)} lines); configs measured {len(m1)} + {len(m2)}"
+          f"; measuring pids {[sorted(p) for p in pids]}, devices "
+          f"{sorted(devices, key=str)}; gemm launches {g_launch}")
+    k_s = kernel_s(sp1) + kernel_s(sp2)
+    print(f"  gemm session medians against the main phase's: median "
+          f"|ratio - 1| {statistics.median(devs):.4f}, max "
+          f"{max(devs):.4f}; submit {s_a:.1f} s + resume {s_b:.1f} s "
+          f"= {per_cfg_ms:.1f} ms of host time a measured config, "
+          f"spawns included, of which {k_s:.2f} s building and timing "
+          f"configs")
+    checks = [
+        (st1["status"] == "interrupted"
+         and b1 // 2 <= st1["evaluated"] < b1 and n1 == st1["evaluated"],
+         f"stopped session: {st1}, {n1} journal lines"),
+        (st2["status"] == "done" and st2["evaluated"] == b1
+         and len(recs) == b1, f"resumed session: {st2}, "
+         f"{len(recs)} journal lines"),
+        (len(m1) == st1["evaluated"] and len(m2) == b1 - st1["evaluated"],
+         f"configs measured {len(m1)} + {len(m2)}, journal "
+         f"{st1['evaluated']} + {b1 - st1['evaluated']}"),
+        (all(len(p) == 1 for p in pids) and devices == {0},
+         f"measuring processes {pids}, devices {devices}"),
+        (cfgs == main_cfgs, "the session's configs are not the main "
+         "phase's random search's"),
+        (statistics.median(devs) <= 0.05,
+         f"session medians off the main phase's by "
+         f"{statistics.median(devs):.4f} (median) > 0.05"),
+        (g_launch == {"gemm": b1 * g_per},
+         f"gemm launches {g_launch}, not {b1} configs x {g_per}")]
+    failures.extend(f"orchestrator step 1: {msg}"
+                    for ok, msg in checks if not ok)
+    out["steps"]["gemm_session"] = {
+        "seconds": step1_s, "submit_s": s_a, "resume_s": s_b,
+        "stopped_at": st1["evaluated"], "measured": [len(m1), len(m2)],
+        "median_dev": statistics.median(devs), "max_dev": max(devs),
+        "host_ms_per_config": per_cfg_ms, "kernel_s": k_s,
+        "launches": g_launch}
 
-    def session_id(text: str) -> str:
-        return next(line.split()[1] for line in text.splitlines()
-                    if line.startswith("session "))
+    # 2. attention's whole space across two calls
+    n_valid = len(attention_space.compiled().valid_rows)
+    t0 = time.perf_counter()
+    text, _ = orchestrator_cli(
+        "submit", "--problem", "flash_attention_h100", "--tuner", "grid",
+        "--budget", str(n_valid), "--stop-after", str(n_valid // 2),
+        "--store", str(store), "--trace", str(tmp / "t3.jsonl"))
+    sid2 = session_id(text)
+    st3 = status(store)[sid2]
+    orchestrator_cli("resume", sid2, "--store", str(store), "--trace",
+                     str(tmp / "t4.jsonl"))
+    step2_s = time.perf_counter() - t0
+    from repro_torch.core.results import ResultsDB
+    table = ResultsDB(store / "tables").get(
+        "flash_attention_h100", "h100", f"session_{sid2}")
+    import math
+    finite = [o for o in table.objectives if math.isfinite(o)]
+    t_best = min(finite) if finite else math.inf
+    sp34 = trace_spans(tmp / "t3.jsonl") + trace_spans(tmp / "t4.jsonl")
+    a_launch = span_launches(sp34)
+    print(f"  attention grid {sid2}: stopped at {st3['evaluated']}, "
+          f"table {len(table.configs)} rows ({len(set(table.configs))} "
+          f"distinct, {len(finite)} valid of {n_valid} admitted), best "
+          f"{t_best * 1e3:.4f} ms against the landscape's "
+          f"{attention_best_s * 1e3:.4f} ms; {step2_s:.1f} s, of which "
+          f"{kernel_s(sp34):.2f} s building and timing configs")
+    checks = [
+        (st3["status"] == "interrupted", f"attention stop: {st3}"),
+        (len(table.configs) == n_valid == len(set(table.configs))
+         == len(finite), f"attention table: {len(table.configs)} rows, "
+         f"{len(finite)} valid, {n_valid} admitted"),
+        (abs(t_best / attention_best_s - 1.0) <= 0.03,
+         f"attention table best {t_best * 1e3:.4f} ms against the "
+         f"landscape's {attention_best_s * 1e3:.4f} ms"),
+        (a_launch == {"flash_attention": n_valid * a_per},
+         f"attention launches {a_launch}, not {n_valid} configs x "
+         f"{a_per}")]
+    failures.extend(f"orchestrator step 2: {msg}"
+                    for ok, msg in checks if not ok)
+    out["steps"]["attention_grid"] = {
+        "seconds": step2_s, "stopped_at": st3["evaluated"],
+        "rows": len(table.configs), "valid": len(finite),
+        "best_ms": t_best * 1e3,
+        "landscape_best_ms": attention_best_s * 1e3,
+        "kernel_s": kernel_s(sp34), "launches": a_launch}
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_orch") as tmp:
-        tmp = Path(tmp)
-        store = tmp / "store"
-        # 1. GEMM: stopped, resumed
-        b1 = min(60, budget)
-        t0 = time.perf_counter()
-        text, s_a = cli("submit", "--problem", "gemm_h100", "--tuner",
-                        "random", "--seed", "0", "--budget", str(b1),
-                        "--workers", "4", "--stop-after", str(b1 // 2),
-                        "--store", str(store), "--trace",
-                        str(tmp / "t1.jsonl"))
-        sid = session_id(text)
-        st1 = status(store)[sid]
-        n1 = len(journal(store, sid))
-        text, s_b = cli("resume", sid, "--store", str(store), "--trace",
-                        str(tmp / "t2.jsonl"))
-        st2 = status(store)[sid]
-        recs = journal(store, sid)
-        step1_s = time.perf_counter() - t0
-        sp1, sp2 = spans(tmp / "t1.jsonl"), spans(tmp / "t2.jsonl")
-        m1, m2 = measured(sp1), measured(sp2)
-        pids = [{r["args"]["pid"] for r in m} for m in (m1, m2)]
-        devices = {r.get("i", {}).get("device") for r in recs}
-        cfgs = [gemm_space.from_flat_index(r["k"]) for r in recs]
-        main_cfgs = [t.config for t in gemm_random[:b1]]
-        main_s = {json.dumps(t.config, sort_keys=True): t.objective
-                  for t in gemm_random}
-        devs = [abs(r["o"] / main_s[key] - 1.0) for r, c in zip(recs, cfgs)
-                if (key := json.dumps(c, sort_keys=True)) in main_s] or [1.0]
-        per_cfg_ms = (s_a + s_b) / b1 * 1e3
-        g_launch = launched(sp1 + sp2)
-        print(f"  gemm session {sid}: {st1['status']} "
-              f"{st1['evaluated']}/{st1['budget']} ({n1} journal lines), "
-              f"then {st2['status']} {st2['evaluated']}/{st2['budget']} "
-              f"({len(recs)} lines); configs measured {len(m1)} + {len(m2)}"
-              f"; measuring pids {[sorted(p) for p in pids]}, devices "
-              f"{sorted(devices, key=str)}; gemm launches {g_launch}")
-        k_s = kernel_s(sp1) + kernel_s(sp2)
-        print(f"  gemm session medians against the main phase's: median "
-              f"|ratio - 1| {statistics.median(devs):.4f}, max "
-              f"{max(devs):.4f}; submit {s_a:.1f} s + resume {s_b:.1f} s "
-              f"= {per_cfg_ms:.1f} ms of host time a measured config, "
-              f"spawns included, of which {k_s:.2f} s building and timing "
-              f"configs")
-        checks = [
-            (st1["status"] == "interrupted"
-             and b1 // 2 <= st1["evaluated"] < b1 and n1 == st1["evaluated"],
-             f"stopped session: {st1}, {n1} journal lines"),
-            (st2["status"] == "done" and st2["evaluated"] == b1
-             and len(recs) == b1, f"resumed session: {st2}, "
-             f"{len(recs)} journal lines"),
-            (len(m1) == st1["evaluated"] and len(m2) == b1 - st1["evaluated"],
-             f"configs measured {len(m1)} + {len(m2)}, journal "
-             f"{st1['evaluated']} + {b1 - st1['evaluated']}"),
-            (all(len(p) == 1 for p in pids) and devices == {0},
-             f"measuring processes {pids}, devices {devices}"),
-            (cfgs == main_cfgs, "the session's configs are not the main "
-             "phase's random search's"),
-            (statistics.median(devs) <= 0.05,
-             f"session medians off the main phase's by "
-             f"{statistics.median(devs):.4f} (median) > 0.05"),
-            (g_launch == {"gemm": b1 * g_per},
-             f"gemm launches {g_launch}, not {b1} configs x {g_per}")]
-        failures.extend(f"orchestrator step 1: {msg}"
-                        for ok, msg in checks if not ok)
-        out["steps"]["gemm_session"] = {
-            "seconds": step1_s, "submit_s": s_a, "resume_s": s_b,
-            "stopped_at": st1["evaluated"], "measured": [len(m1), len(m2)],
-            "median_dev": statistics.median(devs), "max_dev": max(devs),
-            "host_ms_per_config": per_cfg_ms, "kernel_s": k_s,
-            "launches": g_launch}
-
-        # 2. attention's whole space across two calls
-        n_valid = len(attention_space.compiled().valid_rows)
-        t0 = time.perf_counter()
-        text, _ = cli("submit", "--problem", "flash_attention_h100",
-                      "--tuner", "grid", "--budget", str(n_valid),
-                      "--stop-after", str(n_valid // 2), "--store",
-                      str(store), "--trace", str(tmp / "t3.jsonl"))
-        sid2 = session_id(text)
-        st3 = status(store)[sid2]
-        cli("resume", sid2, "--store", str(store), "--trace",
-            str(tmp / "t4.jsonl"))
-        step2_s = time.perf_counter() - t0
-        from repro_torch.core.results import ResultsDB
-        table = ResultsDB(store / "tables").get(
-            "flash_attention_h100", "h100", f"session_{sid2}")
-        import math
-        finite = [o for o in table.objectives if math.isfinite(o)]
-        t_best = min(finite) if finite else math.inf
-        sp34 = spans(tmp / "t3.jsonl") + spans(tmp / "t4.jsonl")
-        a_launch = launched(sp34)
-        print(f"  attention grid {sid2}: stopped at {st3['evaluated']}, "
-              f"table {len(table.configs)} rows ({len(set(table.configs))} "
-              f"distinct, {len(finite)} valid of {n_valid} admitted), best "
-              f"{t_best * 1e3:.4f} ms against the landscape's "
-              f"{attention_best_s * 1e3:.4f} ms; {step2_s:.1f} s, of which "
-              f"{kernel_s(sp34):.2f} s building and timing configs")
-        checks = [
-            (st3["status"] == "interrupted", f"attention stop: {st3}"),
-            (len(table.configs) == n_valid == len(set(table.configs))
-             == len(finite), f"attention table: {len(table.configs)} rows, "
-             f"{len(finite)} valid, {n_valid} admitted"),
-            (abs(t_best / attention_best_s - 1.0) <= 0.03,
-             f"attention table best {t_best * 1e3:.4f} ms against the "
-             f"landscape's {attention_best_s * 1e3:.4f} ms"),
-            (a_launch == {"flash_attention": n_valid * a_per},
-             f"attention launches {a_launch}, not {n_valid} configs x "
-             f"{a_per}")]
-        failures.extend(f"orchestrator step 2: {msg}"
-                        for ok, msg in checks if not ok)
-        out["steps"]["attention_grid"] = {
-            "seconds": step2_s, "stopped_at": st3["evaluated"],
-            "rows": len(table.configs), "valid": len(finite),
-            "best_ms": t_best * 1e3,
-            "landscape_best_ms": attention_best_s * 1e3,
-            "kernel_s": kernel_s(sp34), "launches": a_launch}
-
-        # 3. a campaign over the card's id and the cost model's
-        cstore = tmp / "campaign"
-        t0 = time.perf_counter()
-        cli("campaign", "--problems", "flash_attention_h100", "--tuners",
-            "random,genetic", "--archs", "h100,h100sxm,h100pcie",
-            "--seeds", "0", "--budget", "40", "--workers", "1",
-            "--store", str(cstore),
-            "--trace", str(tmp / "t5.jsonl"))
-        step3_s = time.perf_counter() - t0
-        sts = status(cstore)
-        sp5 = spans(tmp / "t5.jsonl")
-        c_launch = launched(sp5)
-        asked: set[int] = set()
-        bad: list[str] = []
-        for s, row in sts.items():
-            spec_arch = json.loads((cstore / s / "meta.json").read_text()
-                                   )["spec"]["arch"]
-            recs = journal(cstore, s)
-            with_info = [r for r in recs
-                         if {"median_s", "repeats"} <= set(r.get("i", {}))]
-            if spec_arch == "h100":
-                asked |= {r["k"] for r in recs}
-                if len(with_info) != len(recs):
-                    bad.append(f"{s}: {len(recs) - len(with_info)} trials "
-                               f"without measured info")
-            elif with_info:
-                bad.append(f"{s}: {len(with_info)} model trials carry "
-                           f"measured info")
-        n_meas = len(measured(sp5))
-        print(f"  campaign: {len(sts)} sessions "
-              f"{sorted(r['status'] for r in sts.values())}; "
-              f"{n_meas} configs measured for {len(asked)} distinct rows "
-              f"the h100 sessions asked; {step3_s:.1f} s, of which "
-              f"{kernel_s(sp5):.2f} s building and timing configs; launches "
-              f"{c_launch}")
-        checks = [
-            (len(sts) == 6 and all(r["status"] == "done"
-                                   for r in sts.values()),
-             f"campaign sessions {[(s, r['status']) for s, r in sts.items()]}"),
-            (not bad, "; ".join(bad)),
-            (n_meas == len(asked), f"campaign measured {n_meas} configs for "
-             f"{len(asked)} distinct h100 rows"),
-            (c_launch == {"flash_attention": len(asked) * a_per},
-             f"campaign launches {c_launch}, not {len(asked)} rows x "
-             f"{a_per}")]
-        failures.extend(f"orchestrator step 3: {msg}"
-                        for ok, msg in checks if not ok)
-        out["steps"]["campaign"] = {
-            "seconds": step3_s, "sessions": len(sts), "measured": n_meas,
-            "distinct_h100_rows": len(asked), "kernel_s": kernel_s(sp5),
-            "launches": c_launch}
+    # 3. a campaign over the card's id and the cost model's
+    t0 = time.perf_counter()
+    orchestrator_cli(
+        "campaign", "--problems", "flash_attention_h100", "--tuners",
+        "random,genetic", "--archs", "h100,h100sxm,h100pcie", "--seeds", "0",
+        "--budget", "40", "--workers", "1", "--store", str(store), "--trace",
+        str(tmp / "t5.jsonl"))
+    step3_s = time.perf_counter() - t0
+    sts = {k: v for k, v in status(store).items() if k not in (sid, sid2)}
+    sp5 = trace_spans(tmp / "t5.jsonl")
+    c_launch = span_launches(sp5)
+    asked: set[int] = set()
+    bad: list[str] = []
+    for s, row in sts.items():
+        spec_arch = json.loads((store / s / "meta.json").read_text()
+                               )["spec"]["arch"]
+        recs = journal_records(store, s)
+        with_info = [r for r in recs
+                     if {"median_s", "repeats"} <= set(r.get("i", {}))]
+        if spec_arch == "h100":
+            asked |= {r["k"] for r in recs}
+            if len(with_info) != len(recs):
+                bad.append(f"{s}: {len(recs) - len(with_info)} trials "
+                           f"without measured info")
+        elif with_info:
+            bad.append(f"{s}: {len(with_info)} model trials carry "
+                       f"measured info")
+    n_meas = len(measured(sp5))
+    print(f"  campaign: {len(sts)} sessions "
+          f"{sorted(r['status'] for r in sts.values())}; "
+          f"{n_meas} configs measured for {len(asked)} distinct rows "
+          f"the h100 sessions asked; {step3_s:.1f} s, of which "
+          f"{kernel_s(sp5):.2f} s building and timing configs; launches "
+          f"{c_launch}")
+    checks = [
+        (len(sts) == 6 and all(r["status"] == "done"
+                               for r in sts.values()),
+         f"campaign sessions {[(s, r['status']) for s, r in sts.items()]}"),
+        (not bad, "; ".join(bad)),
+        (n_meas == len(asked), f"campaign measured {n_meas} configs for "
+         f"{len(asked)} distinct h100 rows"),
+        (c_launch == {"flash_attention": len(asked) * a_per},
+         f"campaign launches {c_launch}, not {len(asked)} rows x "
+         f"{a_per}")]
+    failures.extend(f"orchestrator step 3: {msg}"
+                    for ok, msg in checks if not ok)
+    out["steps"]["campaign"] = {
+        "seconds": step3_s, "sessions": len(sts), "measured": n_meas,
+        "distinct_h100_rows": len(asked), "kernel_s": kernel_s(sp5),
+        "launches": c_launch}
     out["launches"] = {k: g_launch.get(k, 0) + a_launch.get(k, 0)
                        + c_launch.get(k, 0)
                        for k in set(g_launch) | set(a_launch) | set(c_launch)}
+    out["store"] = str(store)
+    out["sessions"] = {"gemm": sid, "attention_grid": sid2,
+                       "campaign": sorted(sts)}
     return out
 
 
@@ -920,6 +976,315 @@ def tuners_check(gemm, winner_check, tables: dict,
                                 "best_ms": table.best()[1] * 1e3,
                                 "configs": len(table.configs),
                                 "tuners": comp}
+    return out
+
+
+#: the servedb phase: the screened GEMM session's tuner, seed, budget and
+#: measured share, and the warm-started submit's rows and budget
+SCREEN_TUNER, SCREEN_SEED, SCREEN_BUDGET, SCREEN_FRAC = "genetic", 0, 40, 0.25
+WARM_TOP, WARM_BUDGET = 8, 16
+#: GEMM's shape for the lookup that the 4096^3 entry answers as nearest
+NEAREST_GEMM = {"m": 2048, "n": 2048, "k": 2048}
+
+
+def servedb_check(orch: dict, tmp: Path, gemm, attention, conv2d,
+                  conv2d_table, gemm_trials, gemm_best_s: float, serve,
+                  counts, failures: list[str],
+                  problem_args: tuple = ()) -> dict:
+    """The serving layer and the surrogate on the card, over what the run
+    measured (no new landscape):
+
+    1. ``servedb build`` over the ``orchestrator`` phase's store (``orch``:
+       the GEMM session, attention's grid, the campaign over h100,
+       h100sxm and h100pcie), then ``servedb verify``;
+    2. lookups in this process under ``h100``: GEMM at its shape (exact:
+       the session's best), GEMM at ``NEAREST_GEMM`` (nearest), attention
+       at its shape (exact: the best of its sessions), conv2d (no session:
+       the cost model's pick, a lookup launching nothing) and an unknown
+       name (the floor, ``{}``); each answer the space admits at its shape
+       is launched there and held against its plain version (``serve(name,
+       config, shape)``, False where the space does not admit it), and the
+       exact GEMM answer is timed against the session's median;
+    3. the surrogate on conv2d: the path's measured table (``h100``) and
+       the cost model's whole tables (``h100sxm``, ``h100pcie``), fitted
+       with ``h100`` held out (Spearman's rho on the measured table, the
+       measured best of the model's top 8 as a share of the table's best),
+       then on all rows and saved to a model store that must verify;
+    4. a screened GEMM session in this process (``SCREEN_*``), its model
+       fitted on GEMM's cost-model tables and ``gemm_trials``: GEMM's
+       launches up by exactly ``warmup + repeats`` a measured trial, none
+       for an estimated one, and its harvest taking no estimated row;
+    5. ``submit --warm-start`` over that model (``WARM_TOP``,
+       ``WARM_BUDGET``): the journal's first rows are the model's top rows.
+
+    The warm-started submit runs while step 3 fits (host arithmetic).  The
+    measured arch is ``gemm.arch`` (on the card ``h100``); the harvests'
+    vocabulary is it and the cost model's ids.  ``problem_args`` go to
+    the submit (on the card none: the card, at the problem's shape).
+    Returns what it measured."""
+    import math
+
+    import numpy as np
+
+    from repro_torch import calibrate
+    from repro_torch.core.costmodel import ARCH_NAMES
+    from repro_torch.core.results import ResultsDB
+    from repro_torch.core.spacetable import mixed_radix_strides
+    from repro_torch.core.surrogate import (ESTIMATED_INFO, Harvest,
+                                            KernelSurrogate, ModelStore,
+                                            SurrogateScreen)
+    from repro_torch.orchestrator import SessionSpec, SessionStore, run_session
+    from repro_torch.servedb import ServeDB, load
+    t_phase = time.perf_counter()
+    store, db_dir, models = Path(orch["store"]), tmp / "servedb", \
+        tmp / "models"
+    arch = gemm.arch
+    vocab = (arch, *ARCH_NAMES)
+    per = gemm.warmup + gemm.repeats
+    out: dict = {}
+
+    def table_rows(prob, table) -> list[int]:
+        codes = np.asarray(table.configs, dtype=np.int64)
+        strides = mixed_radix_strides([p.cardinality
+                                       for p in prob.space.params])
+        return (codes @ strides).tolist()
+
+    def model_tables(h: Harvest, prob) -> None:
+        rows = prob.space.compiled().valid_rows
+        objs = prob.objectives_for_rows_archs(rows, ARCH_NAMES)
+        for a, o in zip(ARCH_NAMES, objs):
+            h.add_rows(rows.tolist(), a, o)
+
+    # 1. build (its start is mostly import torch: the GEMM model fits
+    # meanwhile, host arithmetic), then verify
+    build = start_cli("servedb", "build", "--store", str(store), "--db",
+                      str(db_dir), "--json")
+    t0 = time.perf_counter()
+    gh = Harvest(gemm.name, gemm.space, archs=vocab)
+    model_tables(gh, gemm)
+    ok = [t for t in gemm_trials if t.ok]
+    gh.add_rows([gemm.space.flat_index(t.config) for t in ok], arch,
+                [t.objective for t in ok])
+    gts = gh.build()
+    gmodel = KernelSurrogate.fit(gts)
+    ModelStore(models).save(gmodel)
+    gfit_s = time.perf_counter() - t0
+    text, build_s = finish_cli(build, ("servedb", "build"))
+    built = json.loads(text.strip().splitlines()[-1])
+    text, verify_s = orchestrator_cli("servedb", "verify", "--db",
+                                      str(db_dir), "--json")
+    report = json.loads(text.strip().splitlines()[-1])
+    snap, _ = load(db_dir)
+    entries = {k: {a: len(g["entries"]) for a, g in archs.items()}
+               for k, archs in (snap.tables if snap else {}).items()}
+    print(f"  servedb build {build_s:.1f} s (generation "
+          f"{built['generation']}, {built['entries']} entries, build "
+          f"problems {built['build_problems']}), verify {verify_s:.1f} s "
+          f"({'ok' if report['ok'] else report['problems']}); entries by "
+          f"kernel and arch {entries}")
+    failures.extend(f"servedb: {msg}" for ok_, msg in [
+        (not built["build_problems"], f"build problems "
+         f"{built['build_problems']}"),
+        (report["ok"], f"verify: {report['problems']}"),
+        (entries == {"gemm_h100": {arch: 1}, "flash_attention_h100": {
+            a: 1 for a in vocab}},
+         f"entries {entries}")] if not ok_)
+    out["build"] = {"seconds": build_s, "verify_s": verify_s,
+                    "entries": entries, "generation": built["generation"]}
+
+    # 2. lookups, then each answer at its shape
+    tables = ResultsDB(store / "tables")
+
+    def session_best(kernel: str, prob) -> tuple[dict, float]:
+        best = min((tables.get(*key).best()[::-1]
+                    for key in tables.list_tables()
+                    if key[:2] == (kernel, arch)), key=lambda b: b[0])
+        return prob.space.decode(best[1]), best[0]
+
+    db = ServeDB(db_dir, reload_every_s=0.0)
+    queries = {"gemm_exact": ("gemm_h100", dict(gemm.shape)),
+               "gemm_nearest": ("gemm_h100", dict(NEAREST_GEMM)),
+               "attention_exact": ("flash_attention_h100",
+                                   dict(attention.shape)),
+               "conv2d": ("conv2d_h100", dict(conv2d.shape)),
+               "unknown": ("no_such_kernel", {})}
+    want_tier = {"gemm_exact": ("exact", None),
+                 "gemm_nearest": ("nearest", None),
+                 "attention_exact": ("exact", None),
+                 "conv2d": ("heuristic", "heuristic:cost-model"),
+                 "unknown": ("default", "default:static")}
+    before = counts()
+    answers, lookup_ms = {}, {}
+    for q, (kernel, shape) in queries.items():
+        t0 = time.perf_counter()
+        answers[q] = db.lookup(kernel, shape, arch)
+        lookup_ms[q] = (time.perf_counter() - t0) * 1e3
+    quiet = counts() == before
+    g_cfg, g_s = session_best("gemm_h100", gemm)
+    a_cfg, a_s = session_best("flash_attention_h100", attention)
+    checks = [(quiet, f"the lookups launched kernels: {before} -> "
+               f"{counts()}")]
+    for q, r in answers.items():
+        tier, detail = want_tier[q]
+        print(f"  lookup {q}: {r.kernel} {r.shape} -> {r.tier} "
+              f"[{r.detail}] in {lookup_ms[q]:.2f} ms: {r.config}")
+        checks.append((r.tier == tier and detail in (None, r.detail),
+                       f"{q}: tier {r.tier} [{r.detail}], not {tier}"))
+    checks += [
+        (answers["gemm_exact"].config == g_cfg
+         and answers["gemm_exact"].objective == g_s,
+         f"gemm exact {answers['gemm_exact'].config} is not the session's "
+         f"best {g_cfg}"),
+        (answers["gemm_nearest"].config == g_cfg,
+         f"gemm nearest {answers['gemm_nearest'].config}"),
+        (answers["attention_exact"].config == a_cfg
+         and answers["attention_exact"].objective == a_s,
+         f"attention exact {answers['attention_exact'].config} is not the "
+         f"sessions' best {a_cfg}"),
+        (answers["unknown"].config == {},
+         f"unknown name answered {answers['unknown'].config}")]
+    before = counts()
+    launched_by_tier: dict[str, int] = {}
+    refused_by_tier: dict[str, int] = {}
+    for q, r in answers.items():
+        if not r.config:
+            continue
+        if serve(r.kernel, r.config, r.shape):
+            launched_by_tier[r.tier] = launched_by_tier.get(r.tier, 0) + 1
+        else:
+            refused_by_tier[r.tier] = refused_by_tier.get(r.tier, 0) + 1
+            print(f"  {q}: the space does not admit {r.config} at "
+                  f"{r.shape}")
+    exact_s = gemm.evaluate(g_cfg).objective
+    served = {k: v - before[k] for k, v in counts().items()
+              if v != before[k]}
+    print(f"  answers launched by tier {launched_by_tier}, not admitted "
+          f"{refused_by_tier}; launches {served}; the exact GEMM answer "
+          f"{exact_s * 1e3:.4f} ms against the session's "
+          f"{g_s * 1e3:.4f} ms")
+    checks.append((abs(exact_s / g_s - 1.0) <= 0.05,
+                   f"exact GEMM answer {exact_s * 1e3:.4f} ms against the "
+                   f"session's {g_s * 1e3:.4f} ms"))
+    failures.extend(f"servedb lookups: {msg}" for ok_, msg in checks
+                    if not ok_)
+    out["lookups"] = {q: {"tier": r.tier, "detail": r.detail,
+                          "config": r.config, "ms": lookup_ms[q]}
+                      for q, r in answers.items()}
+    out["launched_by_tier"], out["refused_by_tier"] = launched_by_tier, \
+        refused_by_tier
+    out["launches"] = served
+    out["exact_gemm_ms"], out["session_gemm_ms"] = exact_s * 1e3, g_s * 1e3
+
+    # 4. the screened GEMM session
+    screen = SurrogateScreen(gmodel, gemm.space, arch,
+                             measure_frac=SCREEN_FRAC)
+    spec = SessionSpec(problem=gemm.name, tuner=SCREEN_TUNER, arch=arch,
+                       budget=SCREEN_BUDGET, seed=SCREEN_SEED, workers=1)
+    sstore = SessionStore(tmp / "screened")
+    sstore.create(spec)
+    before = counts()["gemm"]
+    t0 = time.perf_counter()
+    res = run_session(spec, problem=gemm, store=sstore, mode="thread",
+                      screen=screen)
+    screen_s = time.perf_counter() - t0
+    screen_launches = counts()["gemm"] - before
+    meas = [t for t in res.trials if not t.info.get("estimated")]
+    est = [t for t in res.trials if t.info.get("estimated")]
+    h = Harvest(gemm.name, gemm.space, archs=vocab)
+    harvested = h.add_store(sstore)
+    best_meas = min((t.objective for t in meas if t.ok), default=math.inf)
+    print(f"  screened GEMM session ({SCREEN_TUNER}, seed {SCREEN_SEED}, "
+          f"budget {SCREEN_BUDGET}, measure_frac {SCREEN_FRAC}): "
+          f"{len(meas)} measured, {len(est)} estimated in {screen_s:.2f} "
+          f"s; gemm launches {screen_launches}; harvest took {harvested} "
+          f"rows, skipped {h.n_skipped_estimated} estimated; best measured "
+          f"{best_meas * 1e3:.4f} ms = {gemm_best_s / best_meas:.1%} of the "
+          f"main phase's best {gemm_best_s * 1e3:.4f} ms")
+    failures.extend(f"servedb screen: {msg}" for ok_, msg in [
+        (len(res.trials) == SCREEN_BUDGET and meas and est,
+         f"{len(res.trials)} trials, {len(meas)} measured"),
+        (all(t.ok for t in meas), "measured trials invalid: " + "; ".join(
+            f"{t.config} {t.info}" for t in meas if not t.ok)[:2000]),
+        (all(t.info == ESTIMATED_INFO for t in est),
+         "an estimated trial lacks its provenance"),
+        (screen_launches == len(meas) * per,
+         f"gemm launches {screen_launches}, not {len(meas)} measured x "
+         f"{per}"),
+        (harvested == len(meas) and h.n_skipped_estimated == len(est),
+         f"harvest took {harvested} rows, skipped "
+         f"{h.n_skipped_estimated}")] if not ok_)
+    out["screen"] = {"seconds": screen_s, "measured": len(meas),
+                     "estimated": len(est), "launches": screen_launches,
+                     "best_ms": best_meas * 1e3,
+                     "share_of_main_best": gemm_best_s / best_meas,
+                     "harvested": harvested}
+
+    # 5. the warm-started submit, in the background while 3 fits
+    wstore = tmp / "warm"
+    top = gmodel.top_rows(gemm.space, arch, k=WARM_TOP)
+    warm = start_cli("submit", "--problem", gemm.name, "--tuner",
+                     SCREEN_TUNER, "--arch", arch, "--budget",
+                     str(WARM_BUDGET), "--warm-start", str(models),
+                     "--warm-top", str(WARM_TOP), "--workers", "1",
+                     "--store", str(wstore), "--trace",
+                     str(tmp / "warm.jsonl"), *problem_args)
+
+    # 3. the surrogate on conv2d
+    t0 = time.perf_counter()
+    ch = Harvest(conv2d.name, conv2d.space, archs=vocab)
+    n_meas = ch.add_table(conv2d_table)
+    model_tables(ch, conv2d)
+    cts = ch.build()
+    rest, held = cts.split_arch(arch)
+    cmodel = KernelSurrogate.fit(rest)
+    rho = calibrate.spearman(cmodel.predict_log(held.X), held.y)
+    measured_s = dict(zip(table_rows(conv2d, conv2d_table),
+                          conv2d_table.objectives))
+    ctop = cmodel.top_rows(conv2d.space, arch, k=8)
+    top_best = min(measured_s[r] for r in ctop)
+    table_best = min(measured_s.values())
+    full_model = KernelSurrogate.fit(cts)
+    ModelStore(models).save(full_model)
+    verdict = ModelStore(models).verify_dir()
+    conv_s = time.perf_counter() - t0
+    print(f"  surrogate on conv2d: {n_meas} measured rows ({arch}) + "
+          f"{len(cts) - n_meas} cost-model rows; {arch} held out: rho "
+          f"{rho:.3f}, the model's top 8 reach "
+          f"{table_best / top_best:.1%} of the table's best "
+          f"({top_best * 1e3:.4f} against {table_best * 1e3:.4f} ms); "
+          f"fitted on all {len(cts)} rows; models {verdict}; {conv_s:.1f} "
+          f"s (GEMM's model: {len(gts)} rows, {gfit_s:.1f} s)")
+    failures.extend(f"servedb surrogate: {msg}" for ok_, msg in [
+        (n_meas == len(conv2d_table), f"{n_meas} of {len(conv2d_table)} "
+         f"measured rows harvested"),
+        (verdict == {"ok": ["conv2d_h100", "gemm_h100"], "problems": {}},
+         f"model store {verdict}")] if not ok_)
+    out["surrogate"] = {"measured_rows": n_meas, "rows": len(cts),
+                        "heldout_rho": rho, "top8_share": table_best
+                        / top_best, "seconds": conv_s,
+                        "gemm_rows": len(gts), "gemm_fit_s": gfit_s}
+
+    text, warm_s = finish_cli(warm, ("submit", "--warm-start"))
+    sid = session_id(text)
+    recs = journal_records(wstore, sid)
+    warm_launches = span_launches(trace_spans(tmp / "warm.jsonl"))
+    first = [r["k"] for r in recs[:WARM_TOP]]
+    warm_best = min((r["o"] for r in recs if r.get("v")), default=math.inf)
+    print(f"  warm-started submit {sid}: {len(recs)} trials in "
+          f"{warm_s:.1f} s, first {WARM_TOP} rows "
+          f"{'= the model top rows' if first == top else first}; launches "
+          f"{warm_launches}; best {warm_best * 1e3:.4f} ms = "
+          f"{gemm_best_s / warm_best:.1%} of the main phase's best")
+    failures.extend(f"servedb warm start: {msg}" for ok_, msg in [
+        (len(recs) == WARM_BUDGET, f"{len(recs)} journal lines"),
+        (first == top, f"first rows {first}, the model's top {top}"),
+        (warm_launches == {"gemm": WARM_BUDGET * per},
+         f"launches {warm_launches}")] if not ok_)
+    out["warm_start"] = {"seconds": warm_s, "rows": first,
+                         "launches": warm_launches.get("gemm", 0),
+                         "best_ms": warm_best * 1e3,
+                         "share_of_main_best": gemm_best_s / warm_best}
+    out["seconds"] = time.perf_counter() - t_phase
     return out
 
 
@@ -2041,10 +2406,13 @@ def main(argv=None) -> int:
              "expdist": eops.DEFAULT_CONFIG, "dedisp": dops.DEFAULT_CONFIG},
             default_s, failures)
 
+    # the orchestrator phase's store, which the servedb phase distills
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_store")
     with phase("orchestrator"):
         t0 = time.perf_counter()
         orch = orchestrator_check(full, ffull, gemm_random,
-                                  table_best_s, args.budget, failures)
+                                  table_best_s, args.budget, failures,
+                                  Path(work.name))
         orch["seconds"] = time.perf_counter() - t0
         split = start_split()
         orch["start_split"] = split
@@ -2081,6 +2449,43 @@ def main(argv=None) -> int:
         print(f"  tuners phase {tun['seconds']:.1f} s; gemm launches "
               f"{tun['launches']}")
 
+    def serve(kernel: str, cfg: dict, shape: dict) -> bool:
+        """A served config launched at ``shape`` and held against its plain
+        version; False, launching nothing, where the space does not admit
+        it there."""
+        if kernel == "gemm_h100":
+            prob = full if shape == full.shape else GemmProblem(
+                shape=shape, device="cuda")
+            if not admits(prob.space, cfg):
+                return False
+            if prob is full:
+                gemm_parity(cfg, xf, xf_nk)
+            else:
+                x = prob.make_inputs(seed=5, small=False)
+                gemm_parity(cfg, x, x["b"].t().contiguous())
+        elif kernel == "flash_attention_h100":
+            if shape != ffull.shape or not admits(ffull.space, cfg):
+                return False
+            attention_parity(cfg, xaf, True)
+        elif kernel == "conv2d_h100":
+            if shape != cfull.shape or not admits(cfull.space, cfg):
+                return False
+            conv2d_parity(cfg, xcf)
+        else:
+            raise SystemExit(f"chip_smoke: no launch for a served {kernel}")
+        return True
+
+    with phase("servedb"):
+        sdb = servedb_check(orch, Path(work.name), full, ffull, cfull,
+                            cpath["land"]["table"], gemm_trials,
+                            best.objective, serve, counts, failures)
+        work.cleanup()
+        record["servedb"] = sdb
+        print(f"  servedb phase {sdb['seconds']:.1f} s (mark 60 s); "
+              f"launches of served answers {sdb['launches']}, screened "
+              f"session {sdb['screen']['launches']}, warm-started submit "
+              f"{sdb['warm_start']['launches']}")
+
     lines = [
         {"name": "gemm", "route": "cuda",
          "source": "src/repro_torch/csrc/gemm.cu",
@@ -2095,6 +2500,9 @@ def main(argv=None) -> int:
          "tuned_ms": t_best * 1e3, "tuned_config": best.config,
          "orchestrator_launches": orch["launches"].get("gemm", 0),
          "tuners_launches": tun["launches"],
+         "servedb_launches": sdb["launches"].get("gemm", 0),
+         "screen_launches": sdb["screen"]["launches"],
+         "warm_start_launches": sdb["warm_start"]["launches"],
          "build_s": build_s},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -2110,8 +2518,12 @@ def main(argv=None) -> int:
          "tuned_ms": at_best * 1e3, "tuned_config": abest.config,
          "exhaustive_best_ms": table_best_s * 1e3,
          "orchestrator_launches": orch["launches"].get("flash_attention", 0),
+         "servedb_launches": sdb["launches"].get("flash_attention", 0),
          "build_s": build_s},
     ] + f32_lines
+    for line in f32_lines:
+        if line["name"] in sdb["launches"]:
+            line["servedb_launches"] = sdb["launches"][line["name"]]
     record["kernels"] = lines
     record["speedup_over_median"] = res["speedup"]
     record["failures"] = failures

@@ -15,11 +15,11 @@ from .problem import (DEFAULT_ARCH, FunctionProblem, MeasuredProblem, Trial,
                       TunableProblem, materialize_configs)
 from .results import ResultsDB, ResultTable
 from .space import Config, Constraint, Param, SearchSpace, powers_of_two
-from .spacetable import CompiledSpace
+from .spacetable import CompiledSpace, set_cache_dir
 
 __all__ = [
     "SearchSpace", "Param", "Constraint", "Config", "powers_of_two",
-    "CompiledSpace",
+    "CompiledSpace", "set_cache_dir",
     "TunableProblem", "FunctionProblem", "MeasuredProblem", "Trial",
     "materialize_configs", "DEFAULT_ARCH",
     "ResultsDB", "ResultTable",

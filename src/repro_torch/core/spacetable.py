@@ -29,7 +29,9 @@ pays that cost once, vectorized:
   exactly (pure-int row arithmetic + one mask lookup per try, no dicts), and
   :meth:`sample_neighbor_alias` draws a Hamming-1 move in O(1) from per-row
   alias tables over the CSR neighbor lists (same conditional distribution as
-  the rejection sampler, different — shorter — draw sequence).
+  the rejection sampler, different — shorter — draw sequence),
+* an **on-disk cache** (``.npz``) of the mask and neighbor tables, keyed by a
+  structural fingerprint of the space.
 
 Every compiled path is required to agree exactly with the legacy iterator
 path — the property tests in ``tests/test_spacetable.py`` enforce it — so
@@ -44,7 +46,10 @@ ordering guarantee instead.
 
 from __future__ import annotations
 
+import hashlib
+import os
 import random
+from pathlib import Path
 from typing import TYPE_CHECKING, Sequence
 
 import numpy as np
@@ -56,6 +61,65 @@ if TYPE_CHECKING:  # pragma: no cover
 #: pass an explicit higher limit to ``SearchSpace.compiled``).
 DEFAULT_COMPILE_LIMIT = 1 << 21
 
+_CACHE_VERSION = 1
+_CACHE_DIR_ENV = "REPRO_SPACE_CACHE"
+_UNSET = object()
+_cache_dir: object = _UNSET
+
+
+def set_cache_dir(path: str | Path | None) -> None:
+    """Set the process-wide exhaustive-table cache directory.  ``None``
+    disables caching outright (including the ``REPRO_SPACE_CACHE``
+    environment default, which applies only while unset)."""
+    global _cache_dir
+    _cache_dir = Path(path) if path is not None else None
+
+
+def get_cache_dir() -> Path | None:
+    if _cache_dir is not _UNSET:
+        return _cache_dir  # type: ignore[return-value]
+    env = os.environ.get(_CACHE_DIR_ENV)
+    return Path(env) if env else None
+
+
+#: probe rows hashed into the fingerprint (see space_fingerprint)
+_FINGERPRINT_PROBES = 128
+
+
+def space_fingerprint(space: "SearchSpace") -> str:
+    """Structural identity of a space: name, parameters (names + values, in
+    order), constraint names, and the constraints' *behaviour* on a
+    deterministic probe set.
+
+    Constraint callables close over problem constants (shapes etc.) that
+    ``repr`` cannot see, so two same-named spaces with different closures
+    must not share a cache entry.  We therefore evaluate the raw constraint
+    chain on ~128 rows spread across the cross product and hash the
+    accept/reject bits — any semantic difference visible on the probes
+    changes the fingerprint.  (Two constraint sets that agree on every probe
+    would still collide; delete the cache entry when editing constraints
+    in place.)"""
+    h = hashlib.sha256()
+    h.update(f"v{_CACHE_VERSION}|{space.name}".encode())
+    for p in space.params:
+        h.update(f"|{p.name}={p.values!r}".encode())
+    for c in space.constraints:
+        h.update(f"|c:{c.name}".encode())
+    if space.constraints:
+        n = space.cardinality
+        rows = np.unique(np.linspace(0, n - 1, min(n, _FINGERPRINT_PROBES),
+                                     dtype=np.int64))
+        bits = []
+        for r in rows:
+            cfg = space.from_flat_index(int(r))
+            # the raw declaration-order chain, not the compiled mask (the
+            # fingerprint is computed while building that mask)
+            bits.append("1" if all(c(cfg) for c in space.constraints)
+                        else "0")
+        h.update(("|probe:" + "".join(bits)).encode())
+    return h.hexdigest()[:16]
+
+
 def mixed_radix_strides(cards: Sequence[int]) -> np.ndarray:
     """Place values of the mixed-radix encoding used everywhere in the
     suite: ``strides[i] = prod(cards[i+1:])``, so
@@ -65,6 +129,20 @@ def mixed_radix_strides(cards: Sequence[int]) -> np.ndarray:
     cards = np.asarray(cards, dtype=np.int64)
     cp = np.cumprod(cards[::-1])
     return np.concatenate(([1], cp[:-1]))[::-1].astype(np.int64)
+
+
+def rows_from_codes(cards: Sequence[int],
+                    codes: np.ndarray | Sequence[Sequence[int]]) -> np.ndarray:
+    """Inverse of :meth:`CompiledSpace.codes_for`: fold mixed-radix code
+    rows back into flat indices (``codes @ strides``).  Kept next to
+    :func:`mixed_radix_strides` so every encoder and decoder of the
+    row==flat-index invariant shares the same two functions — the servedb
+    binary export writes rows through this and a serving process can
+    decode them with plain ``divmod``."""
+    codes = np.asarray(codes, dtype=np.int64)
+    if codes.size == 0:
+        return np.zeros(0, dtype=np.int64)
+    return codes @ mixed_radix_strides(cards)
 
 
 def _value_array(values: tuple) -> np.ndarray:
@@ -89,8 +167,13 @@ class CompiledSpace:
     for the config the row encodes.
     """
 
-    def __init__(self, space: "SearchSpace", mask: np.ndarray):
+    def __init__(self, space: "SearchSpace", mask: np.ndarray,
+                 nbr_indptr: np.ndarray | None = None,
+                 nbr_indices: np.ndarray | None = None,
+                 cache_path: Path | None = None):
         self.space = space
+        #: where this table persists (set by :meth:`build` when caching)
+        self.cache_path = cache_path
         self.cards = np.array([p.cardinality for p in space.params],
                               dtype=np.int64)
         self.strides = mixed_radix_strides(self.cards)
@@ -102,8 +185,8 @@ class CompiledSpace:
         #: row -> position in ``valid_rows`` (-1 for invalid rows)
         self.row_pos = np.full(self.n_total, -1, dtype=np.int64)
         self.row_pos[self.valid_rows] = np.arange(len(self.valid_rows))
-        self._nbr_indptr: np.ndarray | None = None
-        self._nbr_indices: np.ndarray | None = None
+        self._nbr_indptr = nbr_indptr
+        self._nbr_indices = nbr_indices
         self._alias: tuple[np.ndarray, np.ndarray] | None = None
         self._value_arrays: list[np.ndarray] | None = None
         #: plain-int copies for the tuners' per-candidate hot loops (numpy
@@ -115,10 +198,26 @@ class CompiledSpace:
     # construction
     # ------------------------------------------------------------------ #
     @staticmethod
-    def build(space: "SearchSpace") -> "CompiledSpace":
-        """Compile ``space``: its valid-row mask, now; its neighbour tables
-        on first use."""
-        return CompiledSpace(space, CompiledSpace._compute_mask(space))
+    def build(space: "SearchSpace",
+              cache_dir: str | Path | None = None) -> "CompiledSpace":
+        """Compile ``space``; loads from / saves to the table cache when a
+        cache directory is configured."""
+        from ..telemetry import metrics as _metrics
+        cache_dir = Path(cache_dir) if cache_dir is not None \
+            else get_cache_dir()
+        path = None
+        if cache_dir is not None:
+            path = cache_dir / f"{space.name}-{space_fingerprint(space)}.npz"
+            loaded = CompiledSpace._load(space, path)
+            if loaded is not None:
+                _metrics.counter("space_cache.hit", space=space.name).inc()
+                return loaded
+            _metrics.counter("space_cache.miss", space=space.name).inc()
+        comp = CompiledSpace(space, CompiledSpace._compute_mask(space),
+                             cache_path=path)
+        if path is not None:
+            comp.save(path)
+        return comp
 
     @staticmethod
     def codes_for(space: "SearchSpace",
@@ -223,11 +322,16 @@ class CompiledSpace:
     def flat_index_many(self, configs: Sequence["Config"]) -> np.ndarray:
         return self.space.flat_index_many(configs)
 
+    def valid_configs(self) -> list["Config"]:
+        """All constraint-satisfying configs, in ``SearchSpace.enumerate``
+        order (row order)."""
+        return self.decode_many(self.valid_rows)
+
     def value_columns(self, rows: Sequence[int] | np.ndarray
                       ) -> dict[str, np.ndarray]:
-        """Per-parameter *value* column arrays for ``rows``: the column
-        form the vectorized constraints consume, fed to the kernels'
-        ``feature_columns``.  No dicts per config."""
+        """Per-parameter *value* column arrays for ``rows`` — the same
+        column form the vectorized constraints consume, fed to the
+        per-kernel ``feature_columns`` overrides.  No dicts per config."""
         rows = np.asarray(rows, dtype=np.int64)
         codes = CompiledSpace.codes_for(self.space, rows)
         if self._value_arrays is None:
@@ -236,11 +340,6 @@ class CompiledSpace:
         return {p.name: va[codes[:, i]]
                 for i, (p, va) in enumerate(zip(self.space.params,
                                                 self._value_arrays))}
-
-    def valid_configs(self) -> list["Config"]:
-        """All constraint-satisfying configs, in ``SearchSpace.enumerate``
-        order (row order)."""
-        return self.decode_many(self.valid_rows)
 
     # ------------------------------------------------------------------ #
     # sampling
@@ -253,6 +352,12 @@ class CompiledSpace:
 
     def sample(self, rng: random.Random) -> "Config":
         return self.decode_row(self.sample_row(rng))
+
+    def sample_rows_distinct(self, n: int, rng: random.Random) -> np.ndarray:
+        """Up to ``n`` distinct valid rows, uniformly without replacement."""
+        k = min(n, len(self.valid_rows))
+        return self.valid_rows[np.asarray(
+            rng.sample(range(len(self.valid_rows)), k), dtype=np.int64)]
 
     def sample_row_rejection(self, rng: random.Random,
                              max_tries: int = 10_000) -> int:
@@ -384,9 +489,13 @@ class CompiledSpace:
         neighbors of ``valid_rows[k]`` are
         ``valid_rows[indices[indptr[k]:indptr[k+1]]]``, listed in
         ``SearchSpace.neighbors`` order (parameter order, then value order).
-        Built lazily and cached."""
+        Built lazily, cached, and re-persisted to this table's own cache
+        file (the one :meth:`build` loaded from / saved to) when caching is
+        enabled."""
         if self._nbr_indptr is None:
             self._nbr_indptr, self._nbr_indices = self._build_csr()
+            if self.cache_path is not None:
+                self.save(self.cache_path)
         return self._nbr_indptr, self._nbr_indices
 
     def _build_csr(self) -> tuple[np.ndarray, np.ndarray]:
@@ -428,6 +537,45 @@ class CompiledSpace:
             return None
         indptr, indices = self.csr_neighbors()
         return self.valid_rows[indices[indptr[pos]:indptr[pos + 1]]]
+
+    # ------------------------------------------------------------------ #
+    # persistence
+    # ------------------------------------------------------------------ #
+    def save(self, path: str | Path) -> Path:
+        path = Path(path)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        payload = {
+            "fingerprint": np.frombuffer(
+                space_fingerprint(self.space).encode(), dtype=np.uint8),
+            "n_total": np.array([self.n_total], dtype=np.int64),
+            "mask_bits": np.packbits(self.mask),
+        }
+        if self._nbr_indptr is not None:
+            payload["nbr_indptr"] = self._nbr_indptr
+            payload["nbr_indices"] = self._nbr_indices
+        tmp = path.with_suffix(".tmp.npz")
+        with open(tmp, "wb") as f:
+            np.savez_compressed(f, **payload)
+        os.replace(tmp, path)
+        return path
+
+    @staticmethod
+    def _load(space: "SearchSpace", path: Path) -> "CompiledSpace | None":
+        if not path.exists():
+            return None
+        try:
+            with np.load(path) as z:
+                fp = bytes(z["fingerprint"]).decode()
+                if fp != space_fingerprint(space) \
+                        or int(z["n_total"][0]) != space.cardinality:
+                    return None
+                mask = np.unpackbits(
+                    z["mask_bits"], count=space.cardinality).astype(bool)
+                indptr = z["nbr_indptr"] if "nbr_indptr" in z else None
+                indices = z["nbr_indices"] if "nbr_indices" in z else None
+        except (OSError, ValueError, KeyError):  # corrupt cache: rebuild
+            return None
+        return CompiledSpace(space, mask, indptr, indices, cache_path=path)
 
     def __repr__(self) -> str:  # pragma: no cover
         return (f"CompiledSpace({self.space.name!r}, rows={self.n_total}, "

@@ -49,9 +49,10 @@ The index-native paths replicate the scalar draw sequences exactly:
 and ``rng.shuffle`` only on the list length — so row-arithmetic rewrites
 of value-choice/rejection loops are draw-for-draw identical.
 
-Warm-start seam
----------------
-An optional seam lets a caller steer any tuner without per-tuner code:
+Surrogate seams (warm start + screening)
+----------------------------------------
+Two optional seams let a trained cross-session surrogate
+(``repro_torch.core.surrogate``) steer any tuner without per-tuner code:
 
 * **Warm start** (:meth:`Tuner.set_warm_start`): a queue of predicted-top
   rows proposed *before* the subclass's own ask stream.  While the queue
@@ -63,10 +64,12 @@ An optional seam lets a caller steer any tuner without per-tuner code:
   row to sequential walkers (annealing, local search) as their walk state.
   With no warm start installed every entry point is a pass-through, so
   cold runs stay bit-identical to a tuner without the seam.
-
-The JAX package also screens fresh configs with a trained surrogate
-(``screen=``); the port has no surrogate yet, so ``run_tuner`` takes no
-``screen``.
+* **Screening** (``screen=`` on :func:`run_tuner` /
+  ``run_session``): a screen ranks each fresh batch with the surrogate and
+  answers the predicted-poor slice with model-estimated trials instead of
+  measurements; estimated trials carry ``info={"estimated": True,
+  "provenance": "surrogate-screen"}`` and are journaled like any other
+  trial, so resumed sessions replay them estimate-for-estimate.
 """
 
 from __future__ import annotations
@@ -394,7 +397,8 @@ class Tuner:
 
 def run_tuner(tuner: Tuner, problem: TunableProblem, budget: int,
               arch: str = DEFAULT_ARCH, unique: bool = True,
-              warm_start: Sequence[int] | None = None) -> TuneResult:
+              warm_start: Sequence[int] | None = None,
+              screen=None) -> TuneResult:
     """Drive ``tuner`` for ``budget`` objective evaluations.
 
     ``unique=True``: re-asked configs are answered from cache and do NOT
@@ -407,7 +411,11 @@ def run_tuner(tuner: Tuner, problem: TunableProblem, budget: int,
 
     ``warm_start``: predicted-top rows installed via
     :meth:`Tuner.set_warm_start` before the loop (``None`` leaves the run
-    bit-identical to a cold one).
+    bit-identical to a cold one).  ``screen``: a surrogate screen
+    (``repro_torch.core.surrogate.SurrogateScreen``) whose ``screen_rows``
+    may answer fresh configs with model-estimated trials instead of
+    measurements — estimated trials carry their provenance in
+    ``Trial.info`` and still consume budget.
     """
     if warm_start is not None:
         tuner.set_warm_start(warm_start)
@@ -429,7 +437,10 @@ def run_tuner(tuner: Tuner, problem: TunableProblem, budget: int,
                 if not unique:
                     res.trials.append(cache[key])
                 continue
-            t = problem.evaluate(comp.decode_row(key), arch)
+            t = screen.screen_rows([key], arch)[0] if screen is not None \
+                else None
+            if t is None:
+                t = problem.evaluate(comp.decode_row(key), arch)
             cache[key] = t
             with span("tuner.tell", cat="tuner"):
                 tuner.report_rows([key], [_objective_of(t)])
@@ -443,7 +454,10 @@ def run_tuner(tuner: Tuner, problem: TunableProblem, budget: int,
                 if not unique:
                     res.trials.append(cache[key])
                 continue
-            t = problem.evaluate(cfg, arch)
+            t = screen.screen_rows([key], arch)[0] if screen is not None \
+                else None
+            if t is None:
+                t = problem.evaluate(cfg, arch)
             cache[key] = t
             with span("tuner.tell", cat="tuner"):
                 tuner.tell(t)

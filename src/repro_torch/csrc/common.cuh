@@ -15,13 +15,14 @@ constexpr int MAX_DEVICES = 64;
 
 // Let kernel K launch with `bytes` of dynamic shared memory on the current
 // device, where that is above the 48 KB any kernel may take.  The opt-in
-// is an attribute of a kernel on each device, so it is remembered per
-// kernel and per device, raised to the most this process has asked there:
-// one remembered per process would leave a second card's first launch
-// refused.
+// is remembered per kernel, per device and per host thread, raised to the
+// most asked there: one remembered per process would leave a second
+// card's first launch refused, and on the H100 a launch from a second
+// host thread of a kernel opted in by another thread is refused too
+// ("invalid argument"), so each thread sets the attribute once itself.
 template <auto K>
 cudaError_t opt_in_smem(int bytes) {
-  static int opted[MAX_DEVICES] = {};
+  static thread_local int opted[MAX_DEVICES] = {};
   if (bytes <= 48 * 1024) return cudaSuccess;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);

@@ -17,16 +17,24 @@ Subcommands::
     metrics  — dump or tail a broker fleet's aggregate metrics as JSON
     doctor   — offline integrity check of a store (+ broker): torn
                journal lines, orphaned RUNNING sessions, stale leases;
-               --lint folds in the contract checks
+               --servedb adds find-DB snapshot triage, --lint folds in the
+               contract checks
+    servedb  — the tuned-config serving layer: build (distill campaign
+               traces into an atomically-published, checksummed
+               snapshot), query (the never-raise degradation chain),
+               verify (offline snapshot/quarantine triage)
+    surrogate — transfer-aware performance models trained on journaled
+               campaign history: train (harvest a session store into
+               per-kernel GBDT models, published to a checksummed model
+               store), predict (rank an arch's space — the warm-start
+               rows), eval (held-out-arch R² against a shuffled-label
+               baseline + top-param report)
     lint     — static contract checks (wall-clock/RNG in deterministic
                seams, chaos-site registry, telemetry naming, journal
                grammar, broker transactions, retry policy) over the
                ``repro_torch`` package, plus --spaces search-space audits
                (every registered problem, built on the CPU); --strict is
                the CI gate
-
-The JAX package's ``servedb`` and ``surrogate`` come with the port of
-servedb and the surrogate.
 
 Problems are the port's eight kernels (``gemm_h100`` ...
 ``flash_attention_h100``) and two toys.  A kernel problem runs on the card
@@ -106,6 +114,42 @@ deterministic fault-injection plane — seeded schedules of worker
 crashes, evaluation hangs, heartbeat stalls, torn journal appends, lock
 storms and clock skew at named sites (see ``chaos.SITES``), replayable
 exactly.
+
+Tuned-config serving (the find-DB): distill finished campaign traces
+into per-(kernel, arch) golden tables, published as one atomic,
+checksummed snapshot; answer "best config for (kernel, shape, arch)"
+through the never-raise degradation chain (exact → nearest-shape →
+heuristic → static default, the tier recorded in the result and in
+telemetry); triage torn or bit-rotted snapshots offline.  The builder
+reads each session's problem on the CPU, and a lookup never measures (a
+cost-model pick for the card's ``h100`` asks ``h100sxm``)::
+
+    python -m repro_torch.orchestrator servedb build \
+        --store experiments/sessions --db experiments/servedb
+    python -m repro_torch.orchestrator servedb query \
+        --db experiments/servedb --kernel flash_attention_h100 \
+        --shape '{"hq":32,"hkv":8,"tq":4096,"tk":4096,"d":128}'
+    python -m repro_torch.orchestrator servedb verify --db experiments/servedb
+    python -m repro_torch.orchestrator doctor --store experiments/sessions \
+        --servedb experiments/servedb
+
+Transfer-aware warm starts: distill every journaled session of a store
+into per-kernel surrogate models (codes + arch-ordinal GBDTs over the
+card's ``h100`` and the cost model's ids, serialized with checksummed
+headers and quarantine-on-corrupt, like servedb), then seed new sessions
+from the model's predicted-top rows.  The resolved row list becomes part
+of the spec identity, so resume replays the same warm queue even after a
+retrain::
+
+    python -m repro_torch.orchestrator surrogate train \
+        --store experiments/sessions --models experiments/models
+    python -m repro_torch.orchestrator surrogate predict \
+        --models experiments/models --problem gemm_h100 --arch h100 --top 8
+    python -m repro_torch.orchestrator surrogate eval \
+        --store experiments/sessions --problem gemm_h100 --holdout h100
+    python -m repro_torch.orchestrator submit --problem gemm_h100 \
+        --tuner genetic --budget 200 --store experiments/sessions \
+        --warm-start experiments/models --warm-top 8
 
 Per-tuner settings ride the spec: ``--tuner-arg k=v`` (repeatable, JSON
 values) merges into every session's ``tuner_kwargs``.
@@ -393,6 +437,13 @@ def main(argv: list[str] | None = None) -> int:
                        help="JSON dict of tuner constructor kwargs")
     p_sub.add_argument("--stop-after", type=int, default=None,
                        help="checkpoint-and-stop after N trials")
+    p_sub.add_argument("--warm-start", default=None, metavar="MODELS",
+                       help="surrogate model-store dir: seed the session "
+                            "with the model's predicted-top rows for "
+                            "--arch (resolved now, stored in the spec)")
+    p_sub.add_argument("--warm-top", type=int, default=8,
+                       help="how many predicted-top rows to warm-start "
+                            "with (default 8)")
     p_sub.add_argument("--chaos", default=None, metavar="PLAN",
                        help="fault-injection plan (JSON file path or inline "
                             "JSON): arm the deterministic chaos plane in "
@@ -579,12 +630,92 @@ def main(argv: list[str] | None = None) -> int:
     p_dr.add_argument("--broker", default=None,
                       help="broker db: also check leases, failed jobs and "
                            "metrics-table sanity")
+    p_dr.add_argument("--servedb", default=None, metavar="DB",
+                      help="find-DB dir: also triage servedb snapshots "
+                           "(checksum verdicts, quarantine listing)")
     p_dr.add_argument("--lint", action="store_true",
                       help="also run the staticcheck contract rules over "
                            "the installed repro_torch package and fold "
                            "findings into the problem list")
     p_dr.add_argument("--json", action="store_true",
                       help="emit the full report as one JSON object")
+
+    p_sv = sub.add_parser(
+        "servedb",
+        help="build / query / verify the tuned-config find-DB")
+    p_sv.add_argument("action", choices=("build", "query", "verify"),
+                      help="build: distill a session store into an atomic "
+                           "snapshot; query: one lookup through the "
+                           "degradation chain; verify: offline snapshot "
+                           "triage (exit 1 on problems)")
+    p_sv.add_argument("--db", required=True,
+                      help="find-DB directory (snapshot + quarantine)")
+    p_sv.add_argument("--store", default=None,
+                      help="build: session store to distill from")
+    p_sv.add_argument("--ttl", type=float, default=None,
+                      help="build: snapshot time-to-live in seconds "
+                           "(lookups past it degrade and flag stale; "
+                           "default: never stale)")
+    p_sv.add_argument("--include", default="session",
+                      help="build: comma-separated ResultsDB protocol "
+                           "prefixes to distill (default: session traces "
+                           "only; add exhaustive,sampled for the paper's "
+                           "full-space tables)")
+    p_sv.add_argument("--no-binary", action="store_true",
+                      help="build: skip the npz row-encoded binary export")
+    p_sv.add_argument("--kernel", default=None,
+                      help="query: kernel table name (e.g. "
+                           "flash_attention_h100, gemm_h100)")
+    p_sv.add_argument("--arch", default=DEFAULT_ARCH,
+                      help="query: architecture key (default %(default)s, "
+                           "the card's id)")
+    p_sv.add_argument("--shape", default=None, metavar="JSON",
+                      help="query: problem shape as a JSON dict "
+                           "(default: {} — matches the nearest entry)")
+    p_sv.add_argument("--stale-ok", action="store_true",
+                      help="query: serve flagged-stale table hits instead "
+                           "of degrading past a stale snapshot")
+    p_sv.add_argument("--json", action="store_true",
+                      help="machine-readable output")
+
+    p_su = sub.add_parser(
+        "surrogate",
+        help="train / query / evaluate transfer-aware surrogate models")
+    p_su.add_argument("action", choices=("train", "predict", "eval"),
+                      help="train: harvest a session store into per-kernel "
+                           "models; predict: rank a target architecture's "
+                           "space (the warm-start rows); eval: held-out-"
+                           "arch R2 vs a shuffled-label baseline "
+                           "(exit 1 when the model does not transfer)")
+    p_su.add_argument("--models", default="experiments/models",
+                      help="model-store directory (checksummed *.model.json "
+                           "+ quarantine)")
+    p_su.add_argument("--store", default=None,
+                      help="train/eval: session store to harvest")
+    p_su.add_argument("--problem", default=None,
+                      help="kernel name(s); train: comma-separated, "
+                           "default all registered")
+    p_su.add_argument("--arch", default=DEFAULT_ARCH,
+                      help="predict: target architecture to rank for "
+                           "(default %(default)s, the card's id)")
+    p_su.add_argument("--holdout", default=DEFAULT_ARCH,
+                      help="eval: architecture held out of training "
+                           "(default %(default)s: the cost model's ids "
+                           "predict the card)")
+    p_su.add_argument("--top", type=int, default=8,
+                      help="predict: how many rows to emit")
+    p_su.add_argument("--min-rows", type=int, default=32,
+                      help="train: skip kernels with fewer harvested rows")
+    p_su.add_argument("--exclude-arch", default=None,
+                      help="train: comma-separated archs to leave out of "
+                           "the harvest (deliberate holdout)")
+    p_su.add_argument("--params", default="{}",
+                      help="train: JSON dict of GBDT hyperparameter "
+                           "overrides")
+    p_su.add_argument("--seed", type=int, default=0,
+                      help="eval: shuffled-label baseline permutation seed")
+    p_su.add_argument("--json", action="store_true",
+                      help="machine-readable output")
 
     p_li = sub.add_parser(
         "lint",
@@ -641,6 +772,227 @@ def _problem_kwargs(args) -> dict:
     return out
 
 
+def _render_servedb_verify(report: dict) -> str:
+    """Human rendering of :func:`repro_torch.servedb.snapshot.verify_dir` —
+    one verdict line per snapshot artifact."""
+    lines = [f"servedb: {report['root']}"]
+    for s in report["snapshots"]:
+        if s["status"] == "corrupt":
+            lines.append(f"  {s['file']:24s} CORRUPT  {s['error']}")
+        else:
+            verdict = s["status"].upper().ljust(8)
+            lines.append(
+                f"  {s['file']:24s} {verdict} gen {s['generation']} "
+                f"{s['kernels']} kernel(s) {s['entries']} entr"
+                f"{'y' if s['entries'] == 1 else 'ies'}"
+                + (f"  binary {'ok' if s['binary_ok'] else 'BAD'}"
+                   if "binary_ok" in s else ""))
+    for q in report["quarantined"]:
+        lines.append(f"  quarantine/{q['file']:24s} ({q['reason']})")
+    if report["problems"]:
+        lines.append(f"problems ({len(report['problems'])}):")
+        lines.extend(f"  - {p}" for p in report["problems"])
+    else:
+        lines.append("no problems found")
+    return "\n".join(lines)
+
+
+def _run_servedb(args) -> int:
+    """``servedb`` subcommand body: build | query | verify."""
+    from ..servedb import ServeDB, verify_dir
+    if args.action == "build":
+        if not args.store:
+            print("error: servedb build needs --store", file=sys.stderr)
+            return 2
+        from ..servedb.distill import build_snapshot
+        from ..servedb.snapshot import publish
+        snap, binary, problems = build_snapshot(
+            args.store, ttl_s=args.ttl,
+            include_protocols=tuple(p for p in args.include.split(",") if p),
+            with_binary=not args.no_binary)
+        for p in problems:
+            print(f"warning: {p}", file=sys.stderr)
+        path = publish(snap, args.db, binary_bytes=binary)
+        if args.json:
+            print(json.dumps(
+                {"db": args.db, "generation": snap.generation,
+                 "kernels": snap.kernels(), "entries": snap.n_entries(),
+                 "binary": snap.binary, "build_problems": problems},
+                separators=(",", ":")))
+        else:
+            print(f"servedb: published generation {snap.generation} "
+                  f"({snap.n_entries()} entr"
+                  f"{'y' if snap.n_entries() == 1 else 'ies'} across "
+                  f"{len(snap.kernels())} kernel(s)) to {path}")
+        return 0
+    if args.action == "query":
+        if not args.kernel:
+            print("error: servedb query needs --kernel", file=sys.stderr)
+            return 2
+        try:
+            shape = json.loads(args.shape) if args.shape else {}
+        except json.JSONDecodeError as e:
+            print(f"error: --shape is not valid JSON: {e}", file=sys.stderr)
+            return 2
+        db = ServeDB(args.db, serve_stale=args.stale_ok)
+        res = db.lookup(args.kernel, shape, args.arch)
+        if args.json:
+            print(json.dumps(
+                {"kernel": res.kernel, "arch": res.arch, "shape": res.shape,
+                 "config": res.config, "tier": res.tier,
+                 "detail": res.detail, "objective": res.objective,
+                 "matched_shape": res.matched_shape,
+                 "distance": res.distance, "stale": res.stale,
+                 "generation": res.generation}, separators=(",", ":")))
+        else:
+            prov = f" [{res.detail}]" if res.detail else ""
+            flags = " (STALE snapshot)" if res.stale else ""
+            print(f"{res.kernel} @ {res.arch}: tier={res.tier}{prov}{flags}")
+            print(f"  config {json.dumps(res.config, sort_keys=True)}")
+            if res.objective is not None:
+                print(f"  objective {_fmt_best(res.objective)}"
+                      + (f"  donor shape {json.dumps(res.matched_shape)}"
+                         f" (distance {res.distance:.2f})"
+                         if res.tier != "exact" else ""))
+        return 0
+    # verify
+    report = verify_dir(args.db)
+    if args.json:
+        print(json.dumps(report, separators=(",", ":")))
+    else:
+        print(_render_servedb_verify(report))
+    return 0 if report["ok"] else 1
+
+
+def _run_surrogate(args) -> int:
+    """``surrogate`` subcommand body: train | predict | eval."""
+    from ..core.surrogate import Harvest, KernelSurrogate, ModelStore
+    from .registry import host_problem, problem_names
+
+    if args.action == "train":
+        if not args.store:
+            print("error: surrogate train needs --store", file=sys.stderr)
+            return 2
+        store = SessionStore(args.store)
+        mstore = ModelStore(args.models)
+        names = ([p for p in args.problem.split(",") if p]
+                 if args.problem else problem_names())
+        exclude = tuple(a for a in (args.exclude_arch or "").split(",") if a)
+        try:
+            params = json.loads(args.params)
+        except json.JSONDecodeError as e:
+            print(f"error: --params is not valid JSON: {e}", file=sys.stderr)
+            return 2
+        report = []
+        for name in names:
+            prob = host_problem(name)
+            h = Harvest(name, prob.space, exclude_archs=exclude)
+            h.add_store(store)
+            ts = h.build()
+            if len(ts) < args.min_rows:
+                report.append({"problem": name, "rows": len(ts),
+                               "trained": False})
+                continue
+            model = KernelSurrogate.fit(ts, params=params)
+            path = mstore.save(model)
+            report.append({"problem": name, "rows": len(ts),
+                           "sources": ts.n_sources,
+                           "skipped_estimated": h.n_skipped_estimated,
+                           "r2_train": round(model.r2(ts), 4),
+                           "trained": True, "path": str(path)})
+        if args.json:
+            print(json.dumps({"models": args.models, "report": report},
+                             separators=(",", ":")))
+        else:
+            for r in report:
+                if r["trained"]:
+                    print(f"{r['problem']}: {r['rows']} rows from "
+                          f"{r['sources']} source(s) "
+                          f"(skipped {r['skipped_estimated']} estimated), "
+                          f"train R2 {r['r2_train']:.3f} -> {r['path']}")
+                else:
+                    print(f"{r['problem']}: {r['rows']} rows "
+                          f"(< --min-rows {args.min_rows}), not trained")
+        return 0 if any(r["trained"] for r in report) else 1
+
+    if args.action == "predict":
+        if not args.problem:
+            print("error: surrogate predict needs --problem",
+                  file=sys.stderr)
+            return 2
+        mstore = ModelStore(args.models)
+        model, problems = mstore.load(args.problem)
+        if model is None:
+            for p in problems:
+                print(f"error: {p}", file=sys.stderr)
+            print(f"error: no usable model for {args.problem!r} in "
+                  f"{args.models}", file=sys.stderr)
+            return 1
+        prob = host_problem(args.problem)
+        rows = model.top_rows(prob.space, args.arch, k=args.top)
+        preds = model.predict_rows(prob.space, rows, args.arch)
+        if args.json:
+            print(json.dumps(
+                {"problem": args.problem, "arch": args.arch,
+                 "rows": rows,
+                 "predicted_s": [float(p) for p in preds]},
+                separators=(",", ":")))
+        else:
+            print(f"{args.problem} @ {args.arch}: top {len(rows)} "
+                  "predicted rows")
+            for row, pred in zip(rows, preds):
+                cfg = prob.space.from_flat_index(int(row))
+                print(f"  row {row:>10d}  {_fmt_best(float(pred)):>12s}  "
+                      f"{json.dumps(cfg, sort_keys=True)}")
+        return 0
+
+    # eval: held-out-architecture transfer check
+    if not args.store or not args.problem:
+        print("error: surrogate eval needs --store and --problem",
+              file=sys.stderr)
+        return 2
+    import numpy as np
+    store = SessionStore(args.store)
+    prob = host_problem(args.problem)
+    h = Harvest(args.problem, prob.space)
+    h.add_store(store)
+    ts = h.build()
+    if args.holdout not in ts.archs:
+        print(f"error: --holdout {args.holdout!r} not in arch vocabulary "
+              f"{ts.archs}", file=sys.stderr)
+        return 2
+    rest, held = ts.split_arch(args.holdout)
+    if not len(rest) or not len(held):
+        print(f"error: empty split (train {len(rest)} rows, "
+              f"held-out {len(held)} rows); harvest more sessions",
+              file=sys.stderr)
+        return 1
+    model = KernelSurrogate.fit(rest)
+    r2_held = model.r2(held)
+    # shuffled-label baseline: same rows, permuted targets — the floor a
+    # genuinely transferring model must clear
+    from dataclasses import replace
+    perm = np.random.default_rng(args.seed).permutation(len(rest))
+    baseline = KernelSurrogate.fit(replace(rest, y=rest.y[perm]))
+    r2_base = baseline.r2(held)
+    top = model.top_params(held)
+    out = {"problem": args.problem, "holdout": args.holdout,
+           "train_rows": len(rest), "holdout_rows": len(held),
+           "r2_holdout": round(float(r2_held), 4),
+           "r2_shuffled_baseline": round(float(r2_base), 4),
+           "transfers": bool(r2_held > r2_base),
+           "top_params": top}
+    if args.json:
+        print(json.dumps(out, separators=(",", ":")))
+    else:
+        print(f"{args.problem} held-out {args.holdout}: "
+              f"R2 {r2_held:.3f} (shuffled-label baseline {r2_base:.3f}) "
+              f"on {len(held)} rows — "
+              f"{'transfers' if out['transfers'] else 'DOES NOT transfer'}")
+        print(f"  top params: {', '.join(top)}")
+    return 0 if out["transfers"] else 1
+
+
 def _run_lint(args) -> int:
     """``lint`` subcommand body: contract checks (+ space audit)."""
     from pathlib import Path
@@ -669,12 +1021,11 @@ def _run_lint(args) -> int:
     audits = []
     if args.spaces:
         from ..staticcheck import audit_space
-        from .registry import PROBLEM_PATHS, make_problem, problem_names
+        from .registry import host_problem, problem_names
         for name in problem_names():
             # a kernel problem defaults to the card; its space is the same
             # on the CPU, so the audit runs on any host
-            kw = {"device": "cpu"} if name in PROBLEM_PATHS else {}
-            audits.append(audit_space(make_problem(name, **kw).space))
+            audits.append(audit_space(host_problem(name).space))
 
     bad_audits = [a for a in audits if not a.ok]
     if args.json:
@@ -807,6 +1158,12 @@ def _dispatch(args) -> int:
         print(json.dumps(events, separators=(",", ":")))
         return 0
 
+    if args.cmd == "servedb":
+        return _run_servedb(args)
+
+    if args.cmd == "surrogate":
+        return _run_surrogate(args)
+
     if args.cmd == "lint":
         return _run_lint(args)
 
@@ -826,7 +1183,8 @@ def _dispatch(args) -> int:
                       file=sys.stderr)
                 return 2
             broker = SQLiteBroker(args.broker)
-        report = diagnose(store, broker, lint=args.lint)
+        report = diagnose(store, broker, servedb=args.servedb,
+                          lint=args.lint)
         if args.json:
             print(json.dumps(report, separators=(",", ":")))
         else:
@@ -867,14 +1225,33 @@ def _dispatch(args) -> int:
             print(f"error: --tuner-kwargs/--problem-kwargs is not valid "
                   f"JSON: {e}", file=sys.stderr)
             return 2
+        model = None
+        if args.warm_start:
+            from ..core.surrogate import ModelStore
+            model, problems = ModelStore(args.warm_start).load(args.problem)
+            if model is None:
+                for p in problems:
+                    print(f"error: {p}", file=sys.stderr)
+                print(f"error: --warm-start: no usable model for "
+                      f"{args.problem!r} in {args.warm_start}",
+                      file=sys.stderr)
+                return 2
+        _start_measuring_early([args.problem], [args.arch], problem_kwargs,
+                               args.mode)
+        warm_rows = None
+        if model is not None:
+            from .registry import host_problem
+            space = host_problem(args.problem, **problem_kwargs).space
+            warm_rows = model.top_rows(space, args.arch, k=args.warm_top)
+            print(f"warm start: {len(warm_rows)} predicted-top rows "
+                  f"for {args.arch}")
         spec = SessionSpec(problem=args.problem, tuner=args.tuner,
                            arch=args.arch, budget=args.budget, seed=args.seed,
                            workers=args.workers, tuner_kwargs=tuner_kwargs,
-                           problem_kwargs=problem_kwargs)
+                           problem_kwargs=problem_kwargs,
+                           warm_start=warm_rows)
         sid = store.create(spec)
         print(f"session {sid}")
-        _start_measuring_early([spec.problem], [spec.arch],
-                               spec.problem_kwargs, args.mode)
         res = run_session(spec, store=store, mode=args.mode,
                           max_retries=args.max_retries,
                           stop_after=args.stop_after)

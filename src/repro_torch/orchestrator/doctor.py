@@ -16,13 +16,14 @@ it only reads.  Checks:
   ``lease``/``collect`` reaps, so a persistently stale lease means no
   driver or worker is touching the queue), failed jobs, and
   metrics-table sanity (finite values, known kinds).
+* **Find-DB** (``--servedb``) — servedb snapshot triage: checksum
+  verification of the live snapshot (and its binary export), stale-TTL
+  flags, quarantine listing, leftover publish temp files; one verdict
+  per snapshot artifact.
 * **Contracts** (``--lint``) — run the :mod:`repro_torch.staticcheck` rule
   engine over the installed ``repro_torch`` package and fold any findings
   into the problem list, so an on-call triage also surfaces contract drift
   in the deployed code (see "Checked contracts" in docs/architecture.md).
-
-The JAX package's find-DB triage (``--servedb``) comes to the port with
-servedb; the report keeps its key, as ``None``.
 
 Everything lands in one report dict (``--json``); exit status 1 when
 problems were found, 0 when clean.
@@ -65,13 +66,14 @@ def _scan_journal(path: Path) -> dict:
 
 
 def diagnose(store: SessionStore, broker: Broker | None = None,
+             servedb: str | Path | None = None,
              lint: bool = False) -> dict:
-    """Inspect ``store`` (and optionally ``broker``); returns the report:
-    ``{"sessions": [...], "broker": {...}|None, "servedb": None,
-    "lint": {...}|None, "problems": [...], "ok": bool}``.  Read-only —
-    never reaps, pops, quarantines, or mutates.  ``lint=True``
-    additionally runs the staticcheck contract rules over the installed
-    ``repro_torch`` package."""
+    """Inspect ``store`` (and optionally ``broker`` and a find-DB dir);
+    returns the report: ``{"sessions": [...], "broker": {...}|None,
+    "servedb": {...}|None, "lint": {...}|None, "problems": [...],
+    "ok": bool}``.  Read-only — never reaps, pops, quarantines, or
+    mutates.  ``lint=True`` additionally runs the staticcheck contract
+    rules over the installed ``repro_torch`` package."""
     problems: list[str] = []
 
     # sessions whose batches are in flight on the fleet right now
@@ -157,6 +159,12 @@ def diagnose(store: SessionStore, broker: Broker | None = None,
                          "metric_workers": len(workers),
                          "bad_metric_samples": bad_samples}
 
+    servedb_report = None
+    if servedb is not None:
+        from ..servedb.snapshot import verify_dir
+        servedb_report = verify_dir(servedb)
+        problems.extend(f"servedb: {p}" for p in servedb_report["problems"])
+
     lint_report = None
     if lint:
         from ..staticcheck import Engine, default_rules
@@ -167,7 +175,7 @@ def diagnose(store: SessionStore, broker: Broker | None = None,
 
     return {"store": str(store.root), "generated_at": time.time(),
             "sessions": sessions, "broker": broker_report,
-            "servedb": None, "lint": lint_report,
+            "servedb": servedb_report, "lint": lint_report,
             "problems": problems, "ok": not problems}
 
 
@@ -204,6 +212,24 @@ def render_report(report: dict) -> str:
             f"leased {c.get('leased', 0)} done {c.get('done', 0)} "
             f"failed {c.get('failed', 0)}; stale leases "
             f"{b['stale_leases']}; {b['metric_workers']} metric worker(s)")
+    if report.get("servedb") is not None:
+        sv = report["servedb"]
+        for s in sv["snapshots"]:
+            if s["status"] == "corrupt":
+                lines.append(f"  servedb: {s['file']:24s} CORRUPT  "
+                             f"{s['error']}")
+            else:
+                lines.append(
+                    f"  servedb: {s['file']:24s} {s['status'].upper():8s} "
+                    f"gen {s['generation']} {s['entries']} entr"
+                    f"{'y' if s['entries'] == 1 else 'ies'}"
+                    + (f"  binary {'ok' if s['binary_ok'] else 'BAD'}"
+                       if "binary_ok" in s else ""))
+        if not sv["snapshots"]:
+            lines.append(f"  servedb: {sv['root']} — no snapshot")
+        if sv["quarantined"]:
+            lines.append(f"  servedb: {len(sv['quarantined'])} "
+                         f"quarantined artifact(s)")
     if report.get("lint") is not None:
         n = len(report["lint"]["findings"])
         lines.append(f"  lint: {n} contract finding(s)"

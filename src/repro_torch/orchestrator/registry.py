@@ -83,3 +83,15 @@ def make_problem(name: str, **kwargs) -> TunableProblem:
     mod_name, attr = PROBLEM_PATHS[name].split(":")
     factory = getattr(importlib.import_module(mod_name), attr)
     return factory(**kwargs)
+
+
+def host_problem(name: str, **kwargs) -> TunableProblem:
+    """:func:`make_problem` with a kernel problem built on the CPU, whatever
+    ``kwargs`` say of its device: its shape and space are the card's, and
+    building it needs no card and measures nothing.  For callers that read
+    a problem's space or shape, or ask the cost model's ids (``lint
+    --spaces``, the servedb builder and lookup, the surrogate's harvests
+    and warm starts)."""
+    if name in PROBLEM_PATHS:
+        kwargs = dict(kwargs, device="cpu")
+    return make_problem(name, **kwargs)

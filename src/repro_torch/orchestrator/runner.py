@@ -45,9 +45,10 @@ The stepper/EvalRequest protocol and its determinism guarantees are
 documented as a stable contract in ``docs/architecture.md``.
 
 A spec's ``warm_start`` rows are installed on the tuner
-(:meth:`Tuner.set_warm_start`) and proposed before its own asks.  The
-surrogate screen is not in the port yet: a ``screen=`` argument is refused
-with a :class:`ValueError` rather than ignored.
+(:meth:`Tuner.set_warm_start`) and proposed before its own asks.  A
+``screen=`` (``repro_torch.core.surrogate.SurrogateScreen``) answers the
+predicted-poor slice of each fresh batch with model-estimated trials,
+journaled beside the measured ones.
 """
 
 from __future__ import annotations
@@ -118,14 +119,6 @@ def resolve_session(spec: SessionSpec,
     return problem, tuner
 
 
-def _refuse_screen(screen) -> None:
-    """There is no surrogate screen in the port yet: refuse one rather
-    than run a different session."""
-    if screen is not None:
-        raise ValueError("screen= needs the surrogate's SurrogateScreen, "
-                         "which the port does not have yet")
-
-
 def session_stepper(spec: SessionSpec, *, problem: TunableProblem,
                     tuner: Tuner, store: SessionStore | None = None,
                     stop_after: int | None = None,
@@ -139,10 +132,11 @@ def session_stepper(spec: SessionSpec, *, problem: TunableProblem,
     and may throw an exception into the generator to abort — the session
     is then marked FAILED with its journal intact, like any crash.
 
-    ``screen`` is refused (:func:`_refuse_screen`): the port has no
-    surrogate screen yet.
+    ``screen`` (a surrogate screen, see ``repro_torch.core.surrogate``)
+    answers a slice of each fresh batch with model-estimated trials; only
+    the remainder is yielded for measurement.  Estimated trials are
+    journaled and told like measured ones.
     """
-    _refuse_screen(screen)
     space = problem.space
     space.compile_eagerly()   # one-time table build: mask-backed fast paths
     res = TuneResult(tuner.name, problem.name, spec.arch, spec.seed)
@@ -230,6 +224,19 @@ def session_stepper(spec: SessionSpec, *, problem: TunableProblem,
                     first_seen[key] = j
                     fresh.append(j)
 
+            screened: list[tuple[int, Trial]] = []
+            if screen is not None and fresh:
+                # the screen answers the predicted-poor slice itself; only
+                # the remainder goes out for measurement
+                verdicts = screen.screen_rows([keys[j] for j in fresh],
+                                              spec.arch)
+                kept: list[int] = []
+                for j, v in zip(fresh, verdicts):
+                    if v is None:
+                        kept.append(j)
+                    else:
+                        screened.append((j, v))
+                fresh = kept
             if not fresh:
                 evaluated: list[Trial] = []
             elif native:
@@ -239,8 +246,8 @@ def session_stepper(spec: SessionSpec, *, problem: TunableProblem,
                 evaluated = yield EvalRequest(problem, spec.arch,
                                               configs=[cfgs[j] for j in fresh])
             journal_records = []
-            # journal in ask order
-            for j, t in zip(fresh, evaluated):
+            # journal in ask order, estimated and measured alike
+            for j, t in sorted(list(zip(fresh, evaluated)) + screened):
                 cache[keys[j]] = t
                 results[j] = t
                 consume[j] = True
@@ -263,6 +270,9 @@ def session_stepper(spec: SessionSpec, *, problem: TunableProblem,
             if _metrics.is_enabled():
                 _c_evals.inc(len(fresh))
                 _c_cache.inc(cache_hits)
+                if screened:
+                    _metrics.counter("session.screened",
+                                     session=_slabel).inc(len(screened))
                 batch_best = min((t.objective for t in results if t.ok),
                                  default=math.inf)
                 if batch_best < _best_seen:
@@ -344,15 +354,17 @@ def run_session(spec: SessionSpec, *, problem: TunableProblem | None = None,
     rejected in broker mode — a driver-side instance that disagreed with
     the registry would silently break the bit-identity guarantee —
     as are ``pool``/``stop_after``/``on_batch`` (monitor via the store's
-    ``status`` instead).
+    ``status`` instead).  ``screen`` answers a slice of each fresh batch
+    with model-estimated trials (:func:`session_stepper`); broker mode
+    refuses it.
     """
-    _refuse_screen(screen)
     if broker is not None:
         if (pool is not None or stop_after is not None or tuner is not None
-                or problem is not None or on_batch is not None):
+                or problem is not None or on_batch is not None
+                or screen is not None):
             raise ValueError(
                 "broker sessions take none of pool=/stop_after=/tuner=/"
-                "problem=/on_batch= — workers rematerialize the "
+                "problem=/on_batch=/screen= — workers rematerialize the "
                 "problem from the registry, and tells batch at session "
                 "granularity (watch progress via `status --store`)")
         from .campaign import run_campaign
@@ -365,7 +377,8 @@ def run_session(spec: SessionSpec, *, problem: TunableProblem | None = None,
         pool = WorkerPool(problem, spec.arch, workers=workers, mode=mode,
                           max_retries=max_retries)
     gen = session_stepper(spec, problem=problem, tuner=tuner, store=store,
-                          stop_after=stop_after, on_batch=on_batch)
+                          stop_after=stop_after, on_batch=on_batch,
+                          screen=screen)
     try:
         return drive(gen, pool)
     finally:

@@ -16,6 +16,7 @@ import ast
 import re
 from typing import Iterator
 
+from ..core.surrogate.store import HEADER_FIELDS
 from .engine import FileContext, Finding, Rule
 
 __all__ = ["default_rules", "DETERMINISTIC_PATHS", "DOCUMENTED_SPANS",
@@ -67,12 +68,9 @@ DOCUMENTED_METRICS = frozenset({
     "session.screened", "surrogate.quarantined",
 })
 
-#: the surrogate model file's header fields (the JAX package's
-#: ``core/surrogate/store.py`` ``HEADER_FIELDS``); the port has no
-#: surrogate yet, so the rule keeps its own copy
-MODEL_HEADER_FIELDS = ("magic", "version", "problem", "created_at",
-                       "feature_names", "archs", "params", "n_rows",
-                       "sections")
+#: the surrogate model file's header fields: the model store's own
+#: grammar (``core/surrogate/store.py`` ``HEADER_FIELDS``)
+MODEL_HEADER_FIELDS = HEADER_FIELDS
 
 #: the ``layer.verb`` grammar every telemetry name must fit
 _NAME_GRAMMAR = re.compile(r"^[a-z][a-z0-9_]*(\.[a-z][a-z0-9_]*)+$")

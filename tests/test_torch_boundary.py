@@ -86,7 +86,18 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.staticcheck",
             "repro_torch.staticcheck.engine",
             "repro_torch.staticcheck.rules",
-            "repro_torch.staticcheck.spaceaudit"} <= set(got["modules"])
+            "repro_torch.staticcheck.spaceaudit",
+            "repro_torch.servedb",
+            "repro_torch.servedb.defaults",
+            "repro_torch.servedb.distill",
+            "repro_torch.servedb.lookup",
+            "repro_torch.servedb.snapshot",
+            "repro_torch.core.spacetable",
+            "repro_torch.core.surrogate",
+            "repro_torch.core.surrogate.dataset",
+            "repro_torch.core.surrogate.model",
+            "repro_torch.core.surrogate.screen",
+            "repro_torch.core.surrogate.store"} <= set(got["modules"])
     assert got["bad"] == [], f"repro_torch loaded {got['bad']}"
 
 
@@ -235,11 +246,12 @@ def test_shared_memory_opt_in_is_per_device():
     attribute of a kernel on each device.  No launcher remembers it once
     per process (a ``smem_set``) or sets the attribute itself: each one
     whose launches may need it calls ``opt_in_smem`` (``csrc/common.cuh``),
-    which remembers it per kernel and per device."""
+    which remembers it per kernel, per device and per host thread (a
+    launch from a thread that did not set it is refused on the card)."""
     common = (PORT / "csrc" / "common.cuh").read_text()
     helper = common[common.index("template <auto K>"):]
     helper = helper[:helper.index("\n}\n")]
-    assert "static int opted[MAX_DEVICES]" in helper
+    assert "static thread_local int opted[MAX_DEVICES]" in helper
     assert "cudaGetDevice(&dev)" in helper and "opted[dev]" in helper
     assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in helper
     calling = set()

@@ -1,6 +1,6 @@
 """The port on a Hopper card: the CUDA GEMM, flash attention, N-body, point
 in polygon, 2-D convolution, Hotspot, ExpDist and dedispersion against
-their plain versions, and the measured evaluator.  Marked ``cuda``; each test
+their plain versions, the measured evaluator, and a screened session.  Marked ``cuda``; each test
 skips on a host without an sm_90 device.  This file imports no JAX, so it
 also runs where only the port is installed:
 
@@ -468,3 +468,78 @@ def test_pool_runs_one_measuring_process_per_card(hopper):
     assert all(t.ok and t.info["device"] == 0 for t in trials) or n > 1
     assert len(spans) == len(cfgs)
     assert len({e["args"]["pid"] for e in spans}) == min(4, n)
+
+
+# --------------------------------------------------------------------- #
+# the surrogate screen
+# --------------------------------------------------------------------- #
+def test_screened_gemm_session_on_the_card(hopper, tmp_path):
+    """A screened GEMM session measured on an sm_90 card at a small shape:
+    estimated trials launch nothing, each measured one ``warmup +
+    repeats`` launches, and harvesting the session takes only the
+    measured rows."""
+    from repro_torch.core.surrogate import (Harvest, KernelSurrogate,
+                                            SurrogateScreen)
+    from repro_torch.orchestrator import (SessionSpec, SessionStore,
+                                          run_session)
+    gemm = GemmProblem(shape=SMALL_SHAPE, device="cuda")
+    rows = gemm.space.compiled().valid_rows
+    h = Harvest(gemm.name, gemm.space)
+    h.add_rows(rows.tolist(), "h100sxm",
+               gemm.objectives_for_rows(rows, "h100sxm"))
+    model = KernelSurrogate.fit(h.build(),
+                                params={"n_trees": 24, "max_depth": 4})
+    screen = SurrogateScreen(model, gemm.space, "h100", measure_frac=0.25)
+    spec = SessionSpec(problem=gemm.name, tuner="genetic", arch="h100",
+                       budget=24, seed=0, workers=1)
+    store = SessionStore(tmp_path / "s", clock=lambda: 0.0)
+    store.create(spec)
+    before = ops.gemm.launches
+    res = run_session(spec, problem=gemm, store=store, mode="thread",
+                      screen=screen)
+    measured = [t for t in res.trials if not t.info.get("estimated")]
+    assert len(res.trials) == 24 and 0 < len(measured) < 24
+    assert all(t.ok for t in measured)
+    assert ops.gemm.launches - before \
+        == len(measured) * (gemm.warmup + gemm.repeats)
+    h2 = Harvest(gemm.name, gemm.space)
+    assert h2.add_store(store) == len(measured)
+    assert h2.n_skipped_estimated == 24 - len(measured)
+
+
+# --------------------------------------------------------------------- #
+# a second host thread
+# --------------------------------------------------------------------- #
+THREAD_PROBLEMS = {
+    "gemm": lambda: GemmProblem(shape=SMALL_SHAPE, device="cuda"),
+    "flash_attention": lambda: AttentionProblem(
+        shape=AttentionProblem.small_shape, device="cuda"),
+    "nbody": lambda: NbodyProblem(shape=NbodyProblem.small_shape,
+                                  device="cuda"),
+    "pnpoly": lambda: PnpolyProblem(shape=PnpolyProblem.small_shape,
+                                    device="cuda"),
+    "conv2d": lambda: Conv2dProblem(shape=Conv2dProblem.small_shape,
+                                    device="cuda"),
+    "hotspot": lambda: HotspotProblem(shape=HotspotProblem.small_shape,
+                                      device="cuda"),
+    "expdist": lambda: ExpdistProblem(shape=ExpdistProblem.small_shape,
+                                      device="cuda"),
+    "dedisp": lambda: DedispProblem(shape=DedispProblem.small_shape,
+                                    device="cuda"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(THREAD_PROBLEMS))
+def test_a_config_measured_first_here_launches_from_another_thread(hopper,
+                                                                   name):
+    """Each kernel's configs, measured first in this thread, measure in
+    two other host threads too (a thread-mode worker pool's): the shared
+    memory opt-in each launcher keeps is the launching thread's own."""
+    from concurrent.futures import ThreadPoolExecutor
+    prob = THREAD_PROBLEMS[name]()
+    for cfg in prob.space.sample_distinct(3, 0):
+        assert prob.evaluate(cfg).ok
+        for _ in range(2):
+            with ThreadPoolExecutor(1) as ex:
+                t = ex.submit(prob.evaluate, cfg).result()
+            assert t.ok, (cfg, t.info)

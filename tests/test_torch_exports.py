@@ -1,7 +1,8 @@
 """The port's package exports against the JAX package's: ``__all__`` of
-``core``, ``core.tuners``, ``telemetry``, ``kernels``, ``orchestrator``,
-``staticcheck`` and ``kernels.attention`` name the same things, apart from
-the named differences below, and every exported name resolves."""
+``core``, ``core.tuners``, ``core.surrogate``, ``telemetry``, ``kernels``,
+``orchestrator``, ``staticcheck``, ``servedb`` and ``kernels.attention``
+name the same things, apart from the named differences below, and every
+exported name resolves."""
 
 from __future__ import annotations
 
@@ -14,15 +15,16 @@ pytest.importorskip("torch")
 #: package -> (names only the JAX package exports, names only the port
 #: exports), each with its reason
 DIFFERENCES = {
-    # the TPU's generation table is the Hopper cards' in the port; the
-    # on-disk space-table cache comes with servedb and the surrogate
-    "core": ({"TPU_GENERATIONS", "set_cache_dir"}, {"GPU_GENERATIONS"}),
+    # the TPU's generation table is the Hopper cards' in the port
+    "core": ({"TPU_GENERATIONS"}, {"GPU_GENERATIONS"}),
     "core.tuners": (set(), set()),
+    "core.surrogate": (set(), set()),
     "telemetry": (set(), set()),
     # the paper's sampled protocol and the launch counters are the port's
     "kernels": (set(), {"SAMPLED", "SAMPLE_N", "launch_counts"}),
     "orchestrator": (set(), set()),
     "staticcheck": (set(), set()),
+    "servedb": (set(), set()),
     # the port's public op keeps its earlier name beside flash_attention
     "kernels.attention": (set(), {"attention"}),
 }

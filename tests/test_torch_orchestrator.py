@@ -4,9 +4,9 @@ trajectories, journals and ``ResultTable`` bytes for the toy problems;
 parallel == serial; exact resume; the chaos plane and retry delays; the
 brokers' lease protocol; the CLI; the kernel problems measured on the host
 in spawned worker processes; the campaign that mixes the measured arch with
-the cost model's; and what the port refuses (a session with no card and no
-``--device``, the surrogate screen); and every tuner's session stopped and
-resumed, cold and warm-started."""
+the cost model's; what the port refuses (a session with no card and no
+``--device``); the surrogate screen's session against the JAX package's;
+and every tuner's session stopped and resumed, cold and warm-started."""
 
 from __future__ import annotations
 
@@ -378,18 +378,17 @@ def test_module_entry_point_is_guarded():
                         "--help"], env=env, capture_output=True, text=True,
                        timeout=120)
     assert r.returncode == 0 and "campaign" in r.stdout
-    for gone in ("servedb", "surrogate"):
-        assert gone not in r.stdout.split("positional")[0]
-    assert "lint" in r.stdout.split("positional")[0]
+    for cmd in ("servedb", "surrogate", "lint"):
+        assert cmd in r.stdout.split("positional")[0]
 
 
 # --------------------------------------------------------------------- #
-# the warm start runs; the surrogate screen is refused, not ignored
+# the warm start and the surrogate screen run as the JAX package's
 # --------------------------------------------------------------------- #
 def test_warm_start_and_screen_are_refused():
-    """The name is older than the warm-start seam: a spec's ``warm_start``
-    now runs (the JAX package's session, journal and table, warm rows
-    first); a ``screen=`` is still refused."""
+    """The name is older than both seams: a spec's ``warm_start`` runs (the
+    JAX package's session, warm rows first), and so does a ``screen=`` (a
+    surrogate screen: the JAX package's trace, estimated trials and all)."""
     spec = port.SessionSpec(problem="toy_quad", tuner="random", budget=8,
                             warm_start=[1, 2])
     assert "warm_start" in spec.canonical()
@@ -400,9 +399,26 @@ def test_warm_start_and_screen_are_refused():
     assert _trace_of(res) == _trace_of(ref.run_session(rspec))
     space = port.make_problem("toy_quad").space
     assert [space.flat_index(t.config) for t in res.trials[:2]] == [1, 2]
-    plain = port.SessionSpec(problem="toy_quad", tuner="random", budget=8)
-    with pytest.raises(ValueError, match="screen"):
-        port.run_session(plain, screen=object())
+    from repro.core import surrogate as ref_surrogate
+    from repro_torch.core import surrogate
+    rows = list(range(0, space.cardinality, 7))
+    objs = [1.0 + sum((c[f"p{i}"] - 2) ** 2 for i in range(4))
+            for c in map(space.from_flat_index, rows)]
+    models = []
+    for mod, sp in ((surrogate, space),
+                    (ref_surrogate, ref.make_problem("toy_quad").space)):
+        h = mod.Harvest("toy_quad", sp, archs=("h100", "h100sxm"))
+        h.add_rows(rows, "h100sxm", objs)
+        models.append(mod.SurrogateScreen(
+            mod.KernelSurrogate.fit(h.build(), params={"n_trees": 12}),
+            sp, "h100", measure_frac=0.25))
+    kw = dict(problem="toy_quad", tuner="genetic", arch="h100", budget=16,
+              seed=2, workers=2)
+    got = port.run_session(port.SessionSpec(**kw), screen=models[0])
+    want = ref.run_session(ref.SessionSpec(**kw), screen=models[1])
+    assert _trace_of(got) == _trace_of(want)
+    assert [t.info for t in got.trials] == [t.info for t in want.trials]
+    assert models[0].n_estimated == models[1].n_estimated > 0
 
 
 @pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])

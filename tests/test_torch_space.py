@@ -121,3 +121,69 @@ def test_neighbour_draws(pair, seed):
         assert tc.sample_neighbor_alias(r, tr) \
             == jc.sample_neighbor_alias(r, jr)
     assert tr.random() == jr.random()
+
+
+# ------------------------------------------------------------------ #
+# the on-disk space-table cache
+# ------------------------------------------------------------------ #
+def test_fingerprint_is_the_references(pair):
+    from repro.core.spacetable import space_fingerprint as jfp
+    from repro_torch.core.spacetable import space_fingerprint as tfp
+    j, t, _, _ = pair
+    assert tfp(t) == jfp(j)
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_cache_files_are_shared_with_the_jax_package(writer, tmp_path):
+    """A table cached by either package loads in the other, its mask and
+    its neighbour tables (persisted when first built) from disk."""
+    from repro.core.spacetable import CompiledSpace as JC
+    from repro_torch.core.spacetable import CompiledSpace as TC
+    port = build_space(256, 256, 512)
+    ref = rebuild(port, jspace)
+    first, second = (JC, TC) if writer == "jax" else (TC, JC)
+    fresh = {JC: lambda: rebuild(port, jspace),
+             TC: lambda: rebuild(ref, tspace)}
+    comp = first.build(fresh[first](), cache_dir=tmp_path)
+    indptr, indices = comp.csr_neighbors()
+    (path,) = tmp_path.glob("*.npz")
+    assert comp.cache_path == path
+    loaded = second.build(fresh[second](), cache_dir=tmp_path)
+    assert loaded.cache_path == path and loaded._nbr_indptr is not None
+    assert np.array_equal(loaded.mask, comp.mask)
+    lp, li = loaded.csr_neighbors()
+    assert np.array_equal(lp, indptr) and np.array_equal(li, indices)
+
+
+def test_cache_mismatch_and_corrupt_file_rebuild(tmp_path):
+    from repro_torch.core.spacetable import CompiledSpace, space_fingerprint
+    s = build_space(256, 256, 512)
+    CompiledSpace.build(s, cache_dir=tmp_path)
+    other = build_space(128, 128, 128)          # same name, other closures
+    assert space_fingerprint(other) != space_fingerprint(s)
+    comp = CompiledSpace.build(other, cache_dir=tmp_path)
+    assert np.array_equal(comp.mask, other.compiled().mask)
+    path = tmp_path / f"{s.name}-{space_fingerprint(s)}.npz"
+    path.write_bytes(b"not an npz")
+    comp = CompiledSpace.build(rebuild(s, tspace), cache_dir=tmp_path)
+    assert np.array_equal(comp.mask, s.compiled().mask)
+
+
+def test_set_cache_dir_and_the_environment(tmp_path, monkeypatch):
+    """``REPRO_SPACE_CACHE`` applies while no directory is set;
+    ``set_cache_dir(None)`` turns caching off, the variable too; a
+    directory set wins over it.  ``repro_torch.core`` re-exports it."""
+    import repro_torch.core as core
+    from repro_torch.core import spacetable as st
+    assert core.set_cache_dir is st.set_cache_dir
+    monkeypatch.setattr(st, "_cache_dir", st._UNSET)
+    monkeypatch.setenv("REPRO_SPACE_CACHE", str(tmp_path / "env"))
+    assert st.get_cache_dir() == tmp_path / "env"
+    st.CompiledSpace.build(build_space(256, 256, 512))
+    assert len(list((tmp_path / "env").glob("gemm_h100-*.npz"))) == 1
+    st.set_cache_dir(None)
+    assert st.get_cache_dir() is None
+    assert st.CompiledSpace.build(build_space(256, 256, 512)).cache_path \
+        is None
+    st.set_cache_dir(tmp_path / "set")
+    assert st.get_cache_dir() == tmp_path / "set"

@@ -93,6 +93,10 @@ def test_rule_set_and_registries_are_the_references():
     assert port_rules.DETERMINISTIC_PATHS == ref_rules.DETERMINISTIC_PATHS
     assert port_rules.DOCUMENTED_METRICS == ref_rules.DOCUMENTED_METRICS
     assert port_rules.MODEL_HEADER_FIELDS == HEADER_FIELDS
+    # the rule reads the port's own model store's header grammar
+    from repro_torch.core.surrogate.store import \
+        HEADER_FIELDS as PORT_HEADER_FIELDS
+    assert port_rules.MODEL_HEADER_FIELDS is PORT_HEADER_FIELDS
     assert port_chaos.SITES == ref_chaos.SITES
     # the one difference: the port's pool emits pool.retry
     extra = {k: v for k, v in port_rules.DOCUMENTED_SPANS.items()
