@@ -168,6 +168,22 @@ Phases, each timed:
                the model's top 8 (``servedb_launches``,
                ``screen_launches`` and ``warm_start_launches`` in the
                ``kernels`` line).
+11. lm       — the LM stack's serving path (``lm_check``): qwen3-8b at full
+               width and depth (36 layers, d 4096, 32/8 heads of 128,
+               vocab 151 936; random weights made on the card from seed 0)
+               served by ``ServingEngine`` (4 slots, 4096 positions,
+               greedy), planned from phase 10's find-DB (tier exact: the
+               model's attention shape is the flash problem's default);
+               six requests of 512, 1024, 2048, 3968, 100 and 777 tokens,
+               32 new tokens each.  Every kernel's count is set to 0 just
+               before and read just after: attention exactly 36 x 4 (the
+               four prompts its space admits), nothing else, the plain
+               route 36 x 2.  Then the 2048-token prompt's last logits by
+               the kernel route against the plain one (``LM_TOL``).
+               Prints parameter and KV-cache GiB, the peak allocation,
+               init seconds, each prefill's milliseconds and route, the
+               median decode step and tokens/s (``lm_launches`` in
+               attention's line of the ``kernels`` line).
 
 Prints the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  A kernel's ``launches`` counts its wrapper's calls on its path;
@@ -1284,6 +1300,225 @@ def servedb_check(orch: dict, tmp: Path, gemm, attention, conv2d,
                          "launches": warm_launches.get("gemm", 0),
                          "best_ms": warm_best * 1e3,
                          "share_of_main_best": gemm_best_s / warm_best}
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+#: the lm phase: qwen3-8b at full width and depth, served by the engine
+#: with 4 slots over 4096 positions, greedy, 32 new tokens a request; the
+#: prompts the flash kernel takes (some config of its space fits: a
+#: block_q divides the length) and two it does not, which run the plain
+#: formulation; the prompt whose last logits the two routes are compared
+#: on
+LM_ARCH = "qwen3-8b"
+LM_SLOTS, LM_MAX_LEN, LM_NEW = 4, 4096, 32
+LM_KERNEL_PROMPTS = (512, 1024, 2048, 3968)
+LM_PLAIN_PROMPTS = (100, 777)
+LM_COMPARE = 2048
+#: rel-L2 of that prompt's last-position f32 logits, flash kernel against
+#: plain route (the same weights).  The plain route rounds the softmax
+#: weights to bf16 before P V (the JAX package's cast); the kernel carries
+#: P as bf16 hi + lo.  One attention call of the model's heads at 2048
+#: tokens keeps each within a few 1e-3 of the f32 oracle (1.6e-3 the
+#: kernel, 2.3e-3 the plain route, PERF.md), so the routes differ by a few
+#: 1e-3 in each layer.  Through 36 layers of random weights that grows
+#: about tenfold, to 2.1e-2 on an H100 (this phase, PERF.md), as 13
+#: reduced layers grow one-ulp flips to 1.1e-2 on the CPU
+#: (``tests/test_torch_models.py``).  The bound is more than twice that; a
+#: wrong mask, scale or head mapping moves it by order one, and each
+#: single call is also held to the JAX package's oracle tolerance.
+LM_TOL = 5e-2
+
+
+def lm_check(db_dir, smi: str, counts, zero_counts, failures: list[str], *,
+             cfg=None, device: str = "cuda",
+             kernel_prompts=LM_KERNEL_PROMPTS, plain_prompts=LM_PLAIN_PROMPTS,
+             compare: int = LM_COMPARE, max_len: int = LM_MAX_LEN,
+             want_tier: str = "exact") -> dict:
+    """The LM path: ``cfg`` (default ``LM_ARCH`` at full width and depth)
+    made on ``device`` from seed 0 (``Model.init``), served by
+    ``ServingEngine`` planned from the find-DB at ``db_dir`` (the servedb
+    phase's snapshot, whose attention entry is this model's
+    ``attention_shape`` at ``max_len``: tier ``want_tier``).  The counts
+    (``counts()``: each kernel's op launches) are set to 0 just before the
+    requests are served and read just after: attention must have launched
+    once a layer for each prompt in ``kernel_prompts`` and nothing else
+    any time, and the plain route run once a layer for each of
+    ``plain_prompts``.  Every request completes with ``LM_NEW`` tokens.
+    Then, outside the counts, the ``compare``-token prompt's last logits by
+    the kernel route against the plain one, within ``LM_TOL``; their
+    argmax agreement is reported, not required (random weights give near
+    ties).  Prints each number beside ``smi``; returns what it measured."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.attention import ops as fops
+    from repro_torch.kernels.attention.ref import mha_reference
+    from repro_torch.models import build_model
+    from repro_torch.models.attention import (ROUTES, _mask_bias, _sdpa,
+                                              admitted_config)
+    from repro_torch.quickstart import rel_l2, tolerance
+    from repro_torch.serve.decode import (FLASH, Request, ServeConfig,
+                                          ServingEngine)
+    t_phase = time.perf_counter()
+    cfg = cfg or ARCHS[LM_ARCH]
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = build_model(cfg).init(0, dev)
+    sync()
+    init_s = time.perf_counter() - t0
+    engine = ServingEngine(model, ServeConfig(
+        n_slots=LM_SLOTS, max_len=max_len, max_new_tokens=LM_NEW,
+        servedb=str(db_dir)))
+    plan = engine.kernel_plan[FLASH]
+    gib = 2.0 ** 30
+    param_gib = sum(p.numel() * p.element_size()
+                    for p in model.parameters()) / gib
+    kv_gib = sum(t.numel() * t.element_size() for layer in engine.cache
+                 for t in layer["attn"].values()) / gib
+    n_params = sum(p.numel() for p in model.parameters())
+    prompts = (*kernel_prompts, *plain_prompts)
+    rng = np.random.default_rng(0)
+    reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab, size=n)
+                    .astype(np.int32)) for i, n in enumerate(prompts)]
+    for r in reqs:
+        engine.submit(r)
+    sync()
+    zero_counts()
+    ROUTES.clear()
+    t0 = time.perf_counter()
+    done = engine.run()
+    sync()
+    run_s = time.perf_counter() - t0
+    launches, routes = counts(), dict(ROUTES)
+    peak_gib = torch.cuda.max_memory_allocated(dev) / gib if cuda else None
+
+    tokens = sum(len(c.tokens) for c in done)
+    decode_ms = statistics.median(engine.decode_ms)
+    n = cfg.n_layers
+    want = {name: 0 for name in launches}
+    want["flash_attention"] = n * len(kernel_prompts)
+    routed = [p["route"] for p in sorted(engine.prefills,
+                                         key=lambda p: p["uid"])]
+    failures.extend(f"lm: {msg}" for ok, msg in [
+        (sorted(c.uid for c in done) == list(range(len(reqs))),
+         f"completed {sorted(c.uid for c in done)} of {len(reqs)}"),
+        (all(len(c.tokens) == LM_NEW for c in done),
+         f"tokens per request {[len(c.tokens) for c in done]}"),
+        (launches == want, f"launches {launches}, want {want}"),
+        (routes.get("plain", 0) == n * len(plain_prompts),
+         f"plain route {routes.get('plain', 0)}, want "
+         f"{n * len(plain_prompts)}"),
+        (routes.get("kernel:plan", 0) + routes.get("kernel:resolved", 0)
+         == want["flash_attention"], f"kernel route {routes}"),
+        (routed == ["kernel"] * len(kernel_prompts)
+         + ["plain"] * len(plain_prompts), f"prefill routes {routed}"),
+        (plan.tier == want_tier, f"plan tier {plan.tier}, want {want_tier}"),
+    ] if not ok)
+
+    # the two routes on one prompt, outside the counted run: the kernel
+    # under the plan's config and under the op's own, against the plain
+    # route; then one attention call of the model's heads at that length
+    # on seeded q, k, v, each route against the f32 oracle
+    plain = model.with_attention_impl("plain")
+    batch = {"tokens": torch.as_tensor(
+        reqs[prompts.index(compare)].prompt[None].astype(np.int64),
+        device=dev)}
+    cmp = {}
+    for name, m, kc in (("kernel", model, engine.kernel_config(FLASH)),
+                        ("kernel_own", model, None),
+                        ("plain", plain, None)):
+        sync()
+        before = ROUTES["plain"]
+        t0 = time.perf_counter()
+        logits, _, _ = m.prefill(batch, kernel_config=kc)
+        sync()
+        cmp[name] = (logits[0].float(), (time.perf_counter() - t0) * 1e3)
+    plain_routed = ROUTES["plain"] - before
+    err = rel_l2(cmp["kernel"][0], cmp["plain"][0])
+    err_own = rel_l2(cmp["kernel_own"][0], cmp["plain"][0])
+    agree = int(cmp["kernel"][0].argmax()) == int(cmp["plain"][0].argmax())
+    for name, e in (("plan's config", err), ("op's own config", err_own)):
+        if not e <= LM_TOL:
+            failures.append(f"lm: kernel ({name}) vs plain route rel_l2 "
+                            f"{e:.3e} > {LM_TOL:g} at {compare} tokens")
+    if plain_routed != n:
+        failures.append("lm: the plain model's prefill took the kernel")
+    gen = torch.Generator(dev).manual_seed(7)
+    qkv = [torch.randn(h, compare, cfg.d_head, generator=gen, device=dev)
+           .to(torch.bfloat16) for h in (cfg.n_heads, cfg.n_kv_heads,
+                                         cfg.n_kv_heads)]
+    oracle = mha_reference(*(t.float() for t in qkv),
+                           scale=cfg.d_head ** -0.5)
+    bias = _mask_bias(compare, compare, 0, None, True, dev)
+    one = {"kernel": fops.attention(*qkv, config=admitted_config(
+               *qkv, engine.kernel_config(FLASH))),
+           "kernel_own": fops.attention(*qkv),
+           "plain": _sdpa(*(t.transpose(0, 1)[None] for t in qkv),
+                          bias)[0].transpose(0, 1)}
+    one_call = {name: rel_l2(o.float(), oracle) for name, o in one.items()}
+    for name, plan_cfg in (("kernel", engine.kernel_config(FLASH)),
+                           ("kernel_own", fops.DEFAULT_CONFIG),
+                           ("plain", {})):
+        tol = tolerance("flash_attention_h100", plan_cfg)
+        if not one_call[name] <= tol:
+            failures.append(f"lm: one attention call by {name} misses the "
+                            f"f32 oracle: rel_l2 {one_call[name]:.3e} > "
+                            f"{tol:g}")
+
+    out = {
+        "arch": cfg.name, "layers": n, "d_model": cfg.d_model,
+        "params": n_params, "param_gib": param_gib, "kv_cache_gib": kv_gib,
+        "max_memory_allocated_gib": peak_gib, "init_s": init_s,
+        "plan_tier": plan.tier, "plan_config": dict(plan.config),
+        "prefills": engine.prefills, "decode_steps": engine.steps,
+        "decode_ms_median": decode_ms, "generated_tokens": tokens,
+        "run_s": run_s, "tokens_per_s": tokens / run_s,
+        "launches": launches["flash_attention"], "routes": routes,
+        "compare": {"prompt": compare, "rel_l2": err,
+                    "rel_l2_own_config": err_own, "tolerance": LM_TOL,
+                    "argmax_agrees": agree,
+                    "kernel_prefill_ms": cmp["kernel"][1],
+                    "kernel_own_prefill_ms": cmp["kernel_own"][1],
+                    "plain_prefill_ms": cmp["plain"][1],
+                    "one_call_vs_f32_oracle": one_call},
+        "nvidia_smi": smi,
+    }
+    print(f"  {cfg.name}: {n} layers, d {cfg.d_model}, {n_params / 1e9:.3f} "
+          f"B parameters, {param_gib:.2f} GiB; KV cache {kv_gib:.2f} GiB "
+          f"({LM_SLOTS} slots x {max_len}); max_memory_allocated "
+          f"{peak_gib if peak_gib is None else round(peak_gib, 2)} GiB; "
+          f"init {init_s:.2f} s ({smi})")
+    print(f"  plan {FLASH} at {plan.shape}: tier {plan.tier}, "
+          f"{dict(plan.config)}")
+    for p in sorted(engine.prefills, key=lambda p: p["uid"]):
+        print(f"  prefill {p['prompt_len']:5d} tokens: {p['ms']:.2f} ms, "
+              f"{p['route']} route ({smi})")
+    print(f"  {len(done)} requests, {tokens} tokens in {engine.steps} decode "
+          f"steps: median step {decode_ms:.2f} ms, {tokens / run_s:.1f} "
+          f"tokens/s over the run's {run_s:.2f} s ({smi})")
+    print(f"  attention launches {launches['flash_attention']} (routes "
+          f"{routes}); kernel vs plain route at {compare} tokens: rel_l2 "
+          f"{err:.3e} under the plan's config, {err_own:.3e} under the op's "
+          f"own (tolerance {LM_TOL:g}), argmax "
+          f"{'agrees' if agree else 'differs'}; prefill "
+          f"{cmp['kernel'][1]:.2f} / {cmp['kernel_own'][1]:.2f} ms against "
+          f"{cmp['plain'][1]:.2f} ms ({smi})")
+    print("  one attention call at that length, rel_l2 to the f32 oracle: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in one_call.items()))
+    del engine, model, plain, cmp, one, qkv, oracle
+    if cuda:
+        torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t_phase
     return out
 
@@ -2479,12 +2714,19 @@ def main(argv=None) -> int:
         sdb = servedb_check(orch, Path(work.name), full, ffull, cfull,
                             cpath["land"]["table"], gemm_trials,
                             best.objective, serve, counts, failures)
-        work.cleanup()
         record["servedb"] = sdb
         print(f"  servedb phase {sdb['seconds']:.1f} s (mark 60 s); "
               f"launches of served answers {sdb['launches']}, screened "
               f"session {sdb['screen']['launches']}, warm-started submit "
               f"{sdb['warm_start']['launches']}")
+
+    with phase("lm"):
+        lm = lm_check(Path(work.name) / "servedb", nvidia_smi_line(), counts,
+                      zero_counts, failures)
+        work.cleanup()
+        record["lm"] = lm
+        print(f"  lm phase {lm['seconds']:.1f} s (mark 60 s); attention "
+              f"launches {lm['launches']}")
 
     lines = [
         {"name": "gemm", "route": "cuda",
@@ -2519,6 +2761,7 @@ def main(argv=None) -> int:
          "exhaustive_best_ms": table_best_s * 1e3,
          "orchestrator_launches": orch["launches"].get("flash_attention", 0),
          "servedb_launches": sdb["launches"].get("flash_attention", 0),
+         "lm_launches": lm["launches"],
          "build_s": build_s},
     ] + f32_lines
     for line in f32_lines:

@@ -74,8 +74,11 @@ def problem_names() -> list[str]:
 
 
 def make_problem(name: str, **kwargs) -> TunableProblem:
-    """Instantiate a registered problem by name (lazy import)."""
+    """Instantiate a registered problem by name (lazy import).  A toy runs
+    nowhere, so it ignores a ``device`` (the CLI's ``--device``, given to
+    every problem of a campaign)."""
     if name in TOY_FACTORIES:
+        kwargs.pop("device", None)
         return TOY_FACTORIES[name](**kwargs)
     if name not in PROBLEM_PATHS:
         raise KeyError(f"unknown problem {name!r}; "

@@ -31,6 +31,11 @@ from repro_torch.kernels.matmul.space import (GemmProblem,  # noqa: E402
 from repro_torch.orchestrator import (SessionSpec, make_problem,  # noqa: E402
                                       run_session)
 
+from repro_torch.configs import ARCHS, reduce_config  # noqa: E402
+from repro_torch.launch import serve as serve_launcher  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
+from repro_torch.serve import ServingEngine  # noqa: E402
+
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 
@@ -97,7 +102,23 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.core.surrogate.dataset",
             "repro_torch.core.surrogate.model",
             "repro_torch.core.surrogate.screen",
-            "repro_torch.core.surrogate.store"} <= set(got["modules"])
+            "repro_torch.core.surrogate.store",
+            "repro_torch.configs",
+            "repro_torch.configs.common",
+            "repro_torch.configs.qwen3_8b",
+            "repro_torch.models",
+            "repro_torch.models.attention",
+            "repro_torch.models.convert",
+            "repro_torch.models.layers",
+            "repro_torch.models.model",
+            "repro_torch.models.moe",
+            "repro_torch.models.rglru",
+            "repro_torch.models.rwkv6",
+            "repro_torch.models.transformer",
+            "repro_torch.serve",
+            "repro_torch.serve.decode",
+            "repro_torch.launch",
+            "repro_torch.launch.serve"} <= set(got["modules"])
     assert got["bad"] == [], f"repro_torch loaded {got['bad']}"
 
 
@@ -106,6 +127,14 @@ def _no_card(monkeypatch):
 
 
 _ARRAYS = {"a": np.ones((2, 2), np.float32), "alpha": 1.0}
+
+
+def _tiny_config():
+    return reduce_config(ARCHS["qwen3-8b"])
+
+
+def _tiny_model():
+    return build_model(_tiny_config())
 
 ENTRY_POINTS = {
     "device.resolve": lambda: devmod.resolve(),
@@ -137,6 +166,11 @@ ENTRY_POINTS = {
     "orchestrator.run_session": lambda: run_session(SessionSpec(
         problem="flash_attention_h100", tuner="random", arch="h100sxm",
         budget=2)),
+    "Model.init": lambda: _tiny_model().init(0),
+    "Model.load_jax": lambda: _tiny_model().load_jax({}),
+    "ServingEngine": lambda: ServingEngine(_tiny_config()),
+    "launch.serve.main": lambda: serve_launcher.main(
+        ["--arch", "qwen3-8b", "--reduced", "--requests", "1"]),
 }
 
 

@@ -1,6 +1,7 @@
 """The port on a Hopper card: the CUDA GEMM, flash attention, N-body, point
 in polygon, 2-D convolution, Hotspot, ExpDist and dedispersion against
-their plain versions, the measured evaluator, and a screened session.  Marked ``cuda``; each test
+their plain versions, the measured evaluator, a screened session, and the
+LM stack's prefill attention on the flash kernel.  Marked ``cuda``; each test
 skips on a host without an sm_90 device.  This file imports no JAX, so it
 also runs where only the port is installed:
 
@@ -543,3 +544,97 @@ def test_a_config_measured_first_here_launches_from_another_thread(hopper,
             with ThreadPoolExecutor(1) as ex:
                 t = ex.submit(prob.evaluate, cfg).result()
             assert t.ok, (cfg, t.info)
+
+
+# --------------------------------------------------------------------- #
+# the LM stack's prefill attention on the flash kernel
+# --------------------------------------------------------------------- #
+def _card_lm():
+    """A small model whose heads the kernel takes (4 q, 2 kv, d 128), on
+    the card with random weights."""
+    from repro_torch.models import ModelConfig, build_model
+    cfg = ModelConfig(name="card-lm", vocab=1024, d_model=512, n_layers=2,
+                      n_heads=4, n_kv_heads=2, d_ff=1024, qk_norm=True,
+                      rope_theta=1_000_000.0)
+    return build_model(cfg).init(0, "cuda")
+
+
+#: the rel-L2 the kernel route's last logits may differ from the plain
+#: route's: the plain route rounds the softmax weights to bf16 before
+#: P V, the kernel keeps P near f32 (bf16 hi + lo), a few 1e-3 apart in
+#: one call; two layers grow that far less than the 36 of chip_smoke.py's
+#: comparison (``LM_TOL`` 5e-2, 2.1e-2 measured there)
+LM_ROUTE_TOL = 2e-2
+
+
+def test_lm_prefill_routes_by_shape_and_counts_exactly(hopper):
+    """An admitted prompt (128 tokens) runs the kernel once a layer, an
+    unadmitted one (100) the plain route once a layer; the engine serves
+    both."""
+    import numpy as np
+
+    from repro_torch.models.attention import ROUTES
+    from repro_torch.serve import Request, ServeConfig, ServingEngine
+    model = _card_lm()
+    engine = ServingEngine(model, ServeConfig(n_slots=2, max_len=256,
+                                              max_new_tokens=4))
+    rng = np.random.default_rng(0)
+    for uid, n in enumerate((128, 100)):
+        engine.submit(Request(uid=uid, prompt=rng.integers(0, 1024, n)))
+    ROUTES.clear()
+    before = fops.attention.launches
+    done = engine.run()
+    assert sorted(len(c.tokens) for c in done) == [4, 4]
+    assert fops.attention.launches - before == 2
+    assert ROUTES["plain"] == 2
+    assert ROUTES["kernel:plan"] + ROUTES["kernel:resolved"] == 2
+    assert [p["route"] for p in engine.prefills] == ["kernel", "plain"]
+
+
+def test_lm_prefill_kernel_route_matches_the_plain_route(hopper):
+    from repro_torch.quickstart import rel_l2
+    model = _card_lm()
+    plain = model.with_attention_impl("plain")
+    tokens = torch.randint(0, 1024, (1, 256), device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(1))
+    before = fops.attention.launches
+    got, got_cache, _ = model.prefill({"tokens": tokens})
+    assert fops.attention.launches - before == 2
+    want, want_cache, _ = plain.prefill({"tokens": tokens})
+    assert fops.attention.launches - before == 2
+    assert rel_l2(got, want) <= LM_ROUTE_TOL
+    # the caches come from the projections, before attention: layer 0's
+    # are the same tensors' values
+    assert torch.equal(got_cache[0]["attn"]["k"], want_cache[0]["attn"]["k"])
+
+
+def test_lm_plan_config_that_does_not_fit_is_not_passed(hopper,
+                                                        monkeypatch):
+    """A plan config whose block_q does not divide the prompt is replaced
+    by the op's own resolution (the op gets no config); one that fits is
+    passed as it is."""
+    from types import SimpleNamespace
+
+    from repro_torch.models import attention as lm_attention
+    from repro_torch.models.attention import ROUTES
+    seen = []
+
+    def recording(q, k, v, causal=True, scale=None, config=None):
+        seen.append(config)
+        return fops.attention(q, k, v, causal=causal, scale=scale,
+                              config=config)
+
+    monkeypatch.setattr(lm_attention, "flash_ops", SimpleNamespace(
+        attention=recording, check=fops.check,
+        DEFAULT_CONFIG=fops.DEFAULT_CONFIG, SEMANTIC=fops.SEMANTIC))
+    model = _card_lm()
+    tokens = torch.randint(0, 1024, (1, 64), device="cuda")
+    wide = dict(fops.DEFAULT_CONFIG, block_q=128, block_kv=64)
+    fits = dict(fops.DEFAULT_CONFIG, block_q=64, block_kv=64)
+    ROUTES.clear()
+    model.prefill({"tokens": tokens}, kernel_config=wide)
+    assert seen == [None, None]
+    assert ROUTES["kernel:resolved"] == 2 and ROUTES["kernel:plan"] == 0
+    model.prefill({"tokens": tokens}, kernel_config=fits)
+    assert seen[2:] == [fits, fits]
+    assert ROUTES["kernel:plan"] == 2

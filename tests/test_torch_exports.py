@@ -1,7 +1,7 @@
 """The port's package exports against the JAX package's: ``__all__`` of
 ``core``, ``core.tuners``, ``core.surrogate``, ``telemetry``, ``kernels``,
-``orchestrator``, ``staticcheck``, ``servedb`` and ``kernels.attention``
-name the same things, apart from the named differences below, and every
+``orchestrator``, ``staticcheck``, ``servedb``, ``kernels.attention``,
+``models``, ``configs`` and ``serve`` name the same things, apart from the named differences below, and every
 exported name resolves."""
 
 from __future__ import annotations
@@ -27,6 +27,9 @@ DIFFERENCES = {
     "servedb": (set(), set()),
     # the port's public op keeps its earlier name beside flash_attention
     "kernels.attention": (set(), {"attention"}),
+    "models": (set(), set()),
+    "configs": (set(), set()),
+    "serve": (set(), set()),
 }
 
 

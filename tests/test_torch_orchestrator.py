@@ -357,6 +357,28 @@ def test_cli_submit_status_resume_campaign(tmp_path, capsys):
     assert report["ok"] and report["servedb"] is None
 
 
+def test_cli_runs_a_toy_with_device_cpu(tmp_path, capsys):
+    """``--device cpu`` reaches every problem's kwargs; a toy, which runs
+    nowhere, ignores it: a toy's submit, and a campaign mixing a toy with
+    a kernel problem (its arch the cost model's), end done."""
+    assert port_cli(["submit", "--problem", "toy_quad", "--tuner", "random",
+                     "--arch", "h100sxm", "--device", "cpu", "--budget",
+                     "8", "--store", str(tmp_path / "s")]) == 0
+    sid = capsys.readouterr().out.split()[1]
+    assert port_cli(["status", sid, "--store", str(tmp_path / "s"),
+                     "--json"]) == 0
+    assert json.loads(capsys.readouterr().out.splitlines()[-1])[
+        "status"] == "done"
+    assert port_cli(["campaign", "--problems", "toy_quad,conv2d_h100",
+                     "--tuners", "random", "--archs", "h100sxm",
+                     "--device", "cpu", "--budget", "8", "--store",
+                     str(tmp_path / "c")]) == 0
+    rows = [r for r in capsys.readouterr().out.splitlines()
+            if r.startswith(("toy_quad", "conv2d_h100"))]
+    assert len(rows) == 2 and all(" done " in r for r in rows)
+    assert port.make_problem("toy_quad", device="cpu").name == "toy_quad"
+
+
 def test_cli_without_a_card_or_device_raises(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
