@@ -184,6 +184,31 @@ Phases, each timed:
                init seconds, each prefill's milliseconds and route, the
                median decode step and tokens/s (``lm_launches`` in
                attention's line of the ``kernels`` line).
+12. train    — the training path (``train_check``): qwen3-8b at its
+               published widths cut to 8 of 36 layers (2.166 B
+               parameters; remat on), 4 steps of ``make_train_step`` over
+               4 sequences of 4096 tokens in 4 microbatches, from the
+               synthetic pipeline, with ``OptimizerConfig(total_steps=4,
+               warmup_steps=1)``.  Every kernel's count is set to 0 just
+               before the steps and read just after: nothing may launch
+               (training attention runs the plain route: the kernel has
+               no backward), the plain route 8 x 4 x 2 a step (forward and
+               remat's recompute).  Losses and grad norms finite, the
+               first nll not below ln(151 936) - 1 and the last 1 nat
+               below the first (``TRAIN_DROP``), the master weights
+               moved; each step's loss, nll, grad norm, lr and ms, the
+               median step's tokens/s against the step's FLOP bound
+               (``train_bound``), parameter / optimizer-state / peak GiB,
+               a step split into data, forward, backward with recompute
+               and the optimizer; one block's gradients with remat
+               against those without (``REMAT_TOL``).  Then the
+               launcher's drill at the reduced config
+               (``python -m repro_torch.launch.train --reduced``: a run
+               sent SIGTERM after step 6 checkpoints and exits 0, its
+               rerun resumes and matches an uninterrupted run at step 16,
+               ``DRILL_TOL``), and the reduced step on the card against
+               the CPU (``CARD_LOSS_TOL``, ``CARD_GRAD_TOL``)
+               (``train_launches`` in attention's line).
 
 Prints the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  A kernel's ``launches`` counts its wrapper's calls on its path;
@@ -1523,6 +1548,543 @@ def lm_check(db_dir, smi: str, counts, zero_counts, failures: list[str], *,
     return out
 
 
+#: the train phase, part (a): ``TRAIN_ARCH`` at its published widths (d
+#: 4096, 32/8 heads of 128, d_ff 12 288, vocab 151 936, remat on as its
+#: config says) cut to ``TRAIN_LAYERS`` of its 36 layers, which one card
+#: forces: at 16 bytes a parameter (bf16 weight and grad, f32 master, m
+#: and v) the 7.57 B parameters of all 36 need 121 GB against the card's
+#: 80.  ``train_4k``'s 4096-token sequences, a global batch of
+#: ``TRAIN_BATCH`` (the cell's 256 cut for the phase's time) in
+#: ``TRAIN_MICRO`` microbatches of one sequence: set, not asked of
+#: ``launch.steps.microbatch_count``, which budgets the residuals only and
+#: would pick 1, while the plain route keeps a layer's (32, 4096, 4096)
+#: f32 scores, 2.1 GB a sequence, for the backward pass.
+#: ``TRAIN_STEPS`` steps of ``make_train_step`` on ``SyntheticPipeline``
+#: batches, driven directly: through ``TrainLoop`` the final checkpoint
+#: would write about 30 GB
+TRAIN_ARCH = "qwen3-8b"
+TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO = 8, 4096, 4, 4
+TRAIN_STEPS = 4
+#: nats the last step's nll must lie below the first's: the first is
+#: dominated by the tied head's prediction of each position's own token,
+#: which the first updates unlearn (31.86 to 12.44 on an H100 80GB HBM3
+#: at 700 W, PERF.md section 6)
+TRAIN_DROP = 1.0
+#: rel-L2 one full-width block's parameter gradients with remat may differ
+#: from those without it: the recompute runs the same kernels on the same
+#: inputs, so they should be equal to the bit; the bound allows for a
+#: library kernel whose summation order is not fixed run to run
+REMAT_TOL = 1e-6
+#: part (b): the launcher's drill at the reduced config (``--reduced``,
+#: 8 sequences of 128 tokens a step); the preempted run is sent SIGTERM
+#: once it has logged step ``DRILL_STOP``
+DRILL_STEPS, DRILL_CKPT_EVERY, DRILL_STOP = 16, 4, 6
+#: the resumed run's step-16 loss and final parameters against the
+#: uninterrupted run's, relative (max abs difference over the largest
+#: magnitude).  Both runs issue the same kernels on the same inputs, so
+#: on one card they should agree to the bit (on the CPU the loop's test
+#: requires it); the bound allows for a library kernel whose summation
+#: order is not fixed run to run
+DRILL_TOL = 1e-3
+#: part (c): the reduced step on the card against the CPU, same weights
+#: and batch: the loss within ``CARD_LOSS_TOL`` relative, each
+#: parameter's gradient within ``CARD_GRAD_TOL`` rel-L2.  The card's
+#: products sum their f32 terms in another order than the host's, which
+#: flips an occasional bf16 rounding, as the port against the JAX package
+#: on the CPU: there the reduced archs' gradients differ by up to 2.6e-2
+#: (``tests/torch_train.py``, whose ``GRAD_TOL`` is the same 5e-2)
+CARD_LOSS_TOL, CARD_GRAD_TOL = 1e-3, 5e-2
+
+
+def train_bound(cfg, n_params: int, block_params: int, seq: int,
+                batch: int) -> dict:
+    """The least time a step of ``batch`` sequences of ``seq`` tokens could
+    take at the card's bf16 tensor-core peak (``SPEC_ARCH``'s row of
+    ``core/costmodel.py``), every product counted at that rate though the
+    plain attention's and the head's run in f32: 6 x parameters x tokens
+    (forward 2, backward 4; the tied embedding's share is the head's
+    product), plus the plain attention's two products (QK^T and PV, 2 x
+    heads x seq^2 x d_head each, over the whole square: the plain route
+    computes every entry and masks) a layer and a sequence, forward once,
+    backward twice and remat's recompute once, plus remat's recompute of
+    each block's own products (2 x the blocks' parameters x tokens)."""
+    from repro_torch.core.costmodel import GPU_GENERATIONS
+    tokens = seq * batch
+    dense = 6.0 * n_params * tokens
+    attn_fwd = 2 * 2.0 * cfg.n_heads * seq ** 2 * cfg.d_head \
+        * cfg.n_layers * batch
+    recompute = (2.0 * block_params * tokens + attn_fwd) if cfg.remat \
+        else 0.0
+    flops = dense + 3 * attn_fwd + recompute
+    peak = GPU_GENERATIONS[SPEC_ARCH].peak_tc_bf16
+    return {"flops": flops, "dense_flops": dense,
+            "attention_flops": 3 * attn_fwd + (attn_fwd if cfg.remat else 0),
+            "remat_block_flops": recompute - (attn_fwd if cfg.remat else 0),
+            "peak_flops": peak, "bound_ms": flops / peak * 1e3}
+
+
+def _drill_cmd(ckpt_dir: Path, metrics: Path, extra) -> list[str]:
+    return [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+            TRAIN_ARCH, "--reduced", "--steps", str(DRILL_STEPS),
+            "--ckpt-every", str(DRILL_CKPT_EVERY), "--log-every", "1",
+            "--ckpt-dir", str(ckpt_dir), "--metrics", str(metrics), *extra]
+
+
+def _summary(stdout: str) -> dict:
+    """The launcher's JSON summary: its output from the first line that
+    is ``{`` on."""
+    lines = stdout.splitlines()
+    start = lines.index("{")
+    return json.loads("\n".join(lines[start:]))
+
+
+def train_drill(tmp: Path, extra=(), env=None, timeout: float = 300.0
+                ) -> dict:
+    """``python -m repro_torch.launch.train --arch TRAIN_ARCH --reduced
+    --steps 16 --ckpt-every 4 --log-every 1`` three times: uninterrupted,
+    and at the same time a run sent SIGTERM once it has logged step
+    ``DRILL_STOP`` (it finishes its step, checkpoints and exits 0); then
+    that run again, which resumes from its checkpoint and finishes.
+    Returns the three runs' summaries, exit codes and seconds, and the
+    two finished checkpoints' directories."""
+    import os
+    import signal
+    env = dict(os.environ if env is None else env)
+    src = str(ROOT / "src")
+    env["PYTHONPATH"] = src + (os.pathsep + env["PYTHONPATH"]
+                               if env.get("PYTHONPATH") else "")
+    full_dir, pre_dir = tmp / "uninterrupted", tmp / "preempted"
+    logs = {name: (tmp / f"{name}.out", tmp / f"{name}.err")
+            for name in ("uninterrupted", "preempted")}
+    t0 = time.perf_counter()
+    with open(logs["uninterrupted"][0], "w") as full_out, \
+            open(logs["uninterrupted"][1], "w") as full_err, \
+            open(logs["preempted"][1], "w") as pre_err:
+        full = subprocess.Popen(
+            _drill_cmd(full_dir, tmp / "full.jsonl", extra), cwd=ROOT,
+            env=env, stdout=full_out, stderr=full_err)
+        pre = subprocess.Popen(
+            _drill_cmd(pre_dir, tmp / "pre.jsonl", extra), cwd=ROOT,
+            env=env, stdout=subprocess.PIPE, stderr=pre_err, text=True)
+        out, signalled = [], None
+        try:
+            for line in pre.stdout:
+                out.append(line.rstrip("\n"))
+                if signalled is None and re.match(
+                        rf"step\s+{DRILL_STOP}\s", line):
+                    pre.send_signal(signal.SIGTERM)
+                    signalled = time.perf_counter() - t0
+            pre_rc = pre.wait(timeout)
+            pre_s = time.perf_counter() - t0
+            full.wait(timeout)
+            full_s = time.perf_counter() - t0
+        finally:
+            for p in (pre, full):
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            pre.stdout.close()
+    full_stdout, full_stderr, pre_stderr = (
+        path.read_text() for path in (logs["uninterrupted"][0],
+                                      logs["uninterrupted"][1],
+                                      logs["preempted"][1]))
+    t1 = time.perf_counter()
+    resume = subprocess.run(
+        _drill_cmd(pre_dir, tmp / "resume.jsonl", extra), cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=timeout)
+    resume_s = time.perf_counter() - t1
+    runs = {}
+    for name, rc, stdout, stderr, secs in (
+            ("uninterrupted", full.returncode, full_stdout, full_stderr,
+             full_s),
+            ("preempted", pre_rc, "\n".join(out), pre_stderr, pre_s),
+            ("resumed", resume.returncode, resume.stdout, resume.stderr,
+             resume_s)):
+        try:
+            summary = _summary(stdout)
+        except ValueError:
+            summary = None
+        runs[name] = {"rc": rc, "seconds": secs, "summary": summary,
+                      "stderr_tail": stderr[-2000:] if rc else ""}
+    return {"runs": runs, "signalled_at_s": signalled,
+            "dirs": {"uninterrupted": full_dir, "resumed": pre_dir},
+            "metrics": {"uninterrupted": tmp / "full.jsonl",
+                        "resumed": tmp / "resume.jsonl"}}
+
+
+def profile_microbatch(model, mb, sync, top: int = 10) -> dict:
+    """One microbatch's ``train_loss`` forward and backward under
+    ``torch.profiler`` (CPU and CUDA activity): the wall ms, the device
+    kernels' summed ms and the ``top`` kernels by device time (name, ms,
+    calls).  ``busy_ms`` 0 where the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    sync()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        loss, _ = model.train_loss(mb)
+        loss.backward()
+        sync()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [e for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    return {"wall_ms": wall_ms,
+            "busy_ms": sum(e.self_device_time_total for e in rows) / 1e3,
+            "top": [{"name": e.key, "ms": e.self_device_time_total / 1e3,
+                     "calls": e.count} for e in rows[:top]]}
+
+
+def train_check(smi: str, counts, zero_counts, failures: list[str], *,
+                cfg=None, device: str = "cuda", seq: int = TRAIN_SEQ,
+                batch: int = TRAIN_BATCH, micro: int = TRAIN_MICRO,
+                steps: int = TRAIN_STEPS, drop: float = TRAIN_DROP,
+                drill_args=(), drill_env=None) -> dict:
+    """The training path.  (a) ``cfg`` (default ``TRAIN_ARCH`` at
+    ``TRAIN_LAYERS`` layers) made on ``device`` from seed 0, ``steps``
+    steps of ``make_train_step`` over ``batch`` sequences of ``seq``
+    tokens in ``micro`` microbatches: every loss and grad norm finite, the
+    first nll not below ln(vocab) - 1 and the last ``drop`` nats below the
+    first, the master weights moved by step 1, no kernel launched (``counts()``, set to 0 just before the steps
+    and read just after: training attention runs the plain route, the
+    kernel having no backward) and the plain route run twice a layer and
+    microbatch a step with remat (once without); then a step's time split
+    into data, forward, backward with remat's recompute and the
+    optimizer, each timed alone, and one block's parameter gradients with
+    remat against those without it (``REMAT_TOL``).  (b) The launcher's
+    SIGTERM and resume drill (:func:`train_drill`, ``drill_args`` added to
+    each command): the resumed run's step-16 loss and final parameters
+    against the uninterrupted run's (``DRILL_TOL``; on the CPU exactly),
+    the events showing ``preempted`` and ``resumed``.  (c) The reduced
+    config's loss and gradients on ``device`` against the CPU's on the
+    same weights and batch (``CARD_LOSS_TOL``, ``CARD_GRAD_TOL``).
+    Prints each number beside ``smi``; returns what it measured."""
+    import copy
+    import dataclasses
+    import math
+
+    import torch
+
+    from repro_torch.configs import ARCHS, reduce_config
+    from repro_torch.data import DataConfig, make_pipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.models.attention import ROUTES
+    from repro_torch.quickstart import rel_l2
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optimizer import (OptimizerConfig, apply_updates,
+                                             init_opt_state)
+    t_phase = time.perf_counter()
+    cfg = cfg or dataclasses.replace(ARCHS[TRAIN_ARCH],
+                                     n_layers=TRAIN_LAYERS)
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    gib = 2.0 ** 30
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def check(ok: bool, msg: str) -> None:
+        if not ok:
+            failures.append(f"train: {msg}")
+
+    # (a) the step at full width
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    base_gib = torch.cuda.memory_allocated(dev) / gib if cuda else None
+    t0 = time.perf_counter()
+    model = build_model(cfg).init(0, dev)
+    params = dict(model.named_parameters())
+    opt_cfg = OptimizerConfig(total_steps=steps, warmup_steps=1)
+    state = init_opt_state(opt_cfg, params)
+    sync()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.values())
+    block_params = sum(p.numel() for p in model.blocks.parameters())
+    param_gib = sum(p.numel() * p.element_size()
+                    for p in params.values()) / gib
+    opt_gib = sum(t.numel() * t.element_size() for part in ("m", "v",
+                                                           "master")
+                  for t in state[part].values()) / gib
+    pipe = make_pipeline(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                    global_batch=batch))
+    t0 = time.perf_counter()
+    pipe.batch_at(0)
+    data_first_s = time.perf_counter() - t0     # the Markov table's build
+    step = make_train_step(model, opt_cfg, micro)
+    probe = "blocks.0.attn.wq"
+    master0 = state["master"][probe].clone()
+    zero_counts()
+    ROUTES.clear()
+    log, moved = [], None
+    for i in range(steps):
+        t0 = time.perf_counter()
+        host = pipe.batch_at(i)
+        data_s = time.perf_counter() - t0
+        b = {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
+        sync()
+        t0 = time.perf_counter()
+        state, m = step(model, state, b)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        log.append(dict({k: float(v) for k, v in m.items()}, ms=ms,
+                        data_ms=data_s * 1e3))
+        if i == 0:
+            moved = not torch.equal(state["master"][probe], master0)
+    launches, routes = counts(), dict(ROUTES)
+    peak_gib = torch.cuda.max_memory_allocated(dev) / gib if cuda else None
+    del master0
+    med_ms = statistics.median(r["ms"] for r in log)
+    tokens = seq * batch
+    bnd = train_bound(cfg, n_params, block_params, seq, batch)
+    passes = 2 if cfg.remat else 1
+    want_plain = cfg.n_layers * micro * passes * steps
+    check(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+              for r in log), f"a loss or grad norm is not finite: {log}")
+    # the first nll is not near ln(vocab) at this width: the tied head
+    # over N(0, 1) embeddings gives each position's own token a logit of
+    # about sqrt(d_model) times its share of the final residual, as in the
+    # JAX package (``tests/test_torch_train_grads.py::
+    # test_initial_nll_grows_with_width_as_in_jax``).  So the first nll
+    # must not beat uniform guessing by a nat (nothing is learned yet; a
+    # label leak would), and the steps must bring the nll down by a nat
+    check(log[0]["nll"] >= math.log(cfg.vocab) - 1.0,
+          f"first nll {log[0]['nll']:.4f} below ln({cfg.vocab}) - 1 = "
+          f"{math.log(cfg.vocab) - 1.0:.4f}")
+    check(log[-1]["nll"] <= log[0]["nll"] - drop,
+          f"nll {log[0]['nll']:.4f} at step 1, {log[-1]['nll']:.4f} at "
+          f"step {steps}: want {drop:g} nat lower")
+    check(bool(moved), "the master weights did not move in step 1")
+    check(all(v == 0 for v in launches.values()),
+          f"kernels launched while training: {launches}")
+    check(routes.get("plain", 0) == want_plain
+          and sum(routes.values()) == want_plain,
+          f"attention routes {routes}, want plain {want_plain}")
+
+    # a step's time split, each part timed alone (synchronised): data for
+    # the batch, then each microbatch's forward and backward (remat's
+    # recompute inside it), then the update from the f32 grads
+    mbs = [{k: torch.as_tensor(v[j::micro], device=dev)
+            for k, v in pipe.batch_at(steps).items()} for j in range(micro)]
+    t0 = time.perf_counter()
+    pipe.batch_at(steps + 1)
+    split = {"data_ms": (time.perf_counter() - t0) * 1e3, "forward_ms": 0.0,
+             "backward_ms": 0.0}
+    acc = {k: torch.zeros(p.shape, dtype=torch.float32, device=dev)
+           for k, p in params.items()}
+    for mb in mbs:
+        model.zero_grad(set_to_none=True)
+        sync()
+        t0 = time.perf_counter()
+        loss, _ = model.train_loss(mb)
+        sync()
+        t1 = time.perf_counter()
+        loss.backward()
+        sync()
+        t2 = time.perf_counter()
+        for k, p in params.items():
+            acc[k].add_(p.grad)
+        split["forward_ms"] += (t1 - t0) * 1e3
+        split["backward_ms"] += (t2 - t1) * 1e3
+    model.zero_grad(set_to_none=True)
+    sync()
+    t0 = time.perf_counter()
+    for g in acc.values():
+        g.div_(micro)
+    apply_updates(opt_cfg, params, state, acc)
+    sync()
+    split["optimizer_ms"] = (time.perf_counter() - t0) * 1e3
+    del acc
+    kernels = profile_microbatch(model, mbs[0], sync) if cuda else None
+    model.zero_grad(set_to_none=True)
+    del mbs, loss
+
+    # one block's parameter gradients with remat and without
+    plain = copy.copy(model)
+    plain.cfg = dataclasses.replace(cfg, remat=False)
+    gen = torch.Generator(dev).manual_seed(3)
+    x = torch.randn(1, seq, cfg.d_model, generator=gen, device=dev) \
+        .to(torch.bfloat16)
+    w = torch.randn(1, seq, cfg.d_model, generator=gen, device=dev)
+    positions = torch.arange(seq, device=dev)[None]
+    block = model.blocks[0]
+    grads = {}
+    for name, m_ in (("remat", model), ("plain", plain)):
+        out, _, _ = m_._block(block, x, m_.pattern[0], positions=positions)
+        grads[name] = torch.autograd.grad((out.float() * w).sum(),
+                                          list(block.parameters()))
+    remat_errs = [rel_l2(a.float(), b.float())
+                  for a, b in zip(grads["remat"], grads["plain"])]
+    remat_bits = all(torch.equal(a, b)
+                     for a, b in zip(grads["remat"], grads["plain"]))
+    check(max(remat_errs) <= REMAT_TOL,
+          f"one block's grads with remat vs without: rel_l2 "
+          f"{max(remat_errs):.3e} > {REMAT_TOL:g}")
+    del grads, x, w, plain, model, params, state, step, block
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (b) the launcher's drill
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train") as work:
+        t0 = time.perf_counter()
+        drill = train_drill(Path(work), drill_args, drill_env)
+        drill_s = time.perf_counter() - t0
+        runs = drill["runs"]
+        for name, run in runs.items():
+            check(run["rc"] == 0 and run["summary"] is not None,
+                  f"drill's {name} run: exit {run['rc']} "
+                  f"{run['stderr_tail']}")
+        events = {name: (run["summary"] or {}).get("events", [])
+                  for name, run in runs.items()}
+        stopped = [e["step"] for e in events["preempted"]
+                   if e["event"] == "preempted"]
+        resumed = [e["step"] for e in events["resumed"]
+                   if e["event"] == "resumed"]
+        check(len(stopped) == 1 and DRILL_STOP <= stopped[0] < DRILL_STEPS
+              and resumed == stopped,
+              f"drill events: preempted {stopped}, resumed {resumed}")
+        finals = [(run["summary"] or {}).get("final_step")
+                  for run in runs.values()]
+        check(finals[0] == finals[2] == DRILL_STEPS,
+              f"drill final steps {finals}")
+        last = {}
+        for name in ("uninterrupted", "resumed"):
+            path = drill["metrics"][name]
+            rows = [json.loads(s) for s in path.read_text().splitlines()] \
+                if path.exists() else []
+            last[name] = rows[-1] if rows else {}
+        rcfg = reduce_config(ARCHS[TRAIN_ARCH])
+        trees = {}
+        for name, d in drill["dirs"].items():
+            m_ = build_model(rcfg).init(0, "cpu")
+            tree = {"params": m_.state_dict(),
+                    "opt": init_opt_state(OptimizerConfig(),
+                                          dict(m_.named_parameters()))}
+            try:
+                ckpt.restore(d, tree)
+                trees[name] = ckpt._flatten(tree)
+            except (OSError, ValueError) as e:
+                check(False, f"drill's {name} checkpoint: {e}")
+        leaf_diff = loss_diff = None
+        if len(trees) == 2 and last["uninterrupted"] and last["resumed"]:
+            a, b = trees["uninterrupted"], trees["resumed"]
+            leaf_diff = max(float((x.double() - y.double()).abs().max()
+                                  / max(float(x.double().abs().max()),
+                                        1e-30))
+                            if x.is_floating_point() else
+                            float((x != y).any())
+                            for x, y in zip(a, b))
+            bits = all(torch.equal(x, y) for x, y in zip(a, b))
+            lu, lr = last["uninterrupted"]["loss"], last["resumed"]["loss"]
+            loss_diff = abs(lu - lr) / abs(lu)
+            tol = 0.0 if not cuda else DRILL_TOL
+            check(last["uninterrupted"]["step"] == last["resumed"]["step"]
+                  == DRILL_STEPS and loss_diff <= tol and leaf_diff <= tol,
+                  f"drill: resumed vs uninterrupted at step {DRILL_STEPS}: "
+                  f"loss {lr} vs {lu}, leaves differ by {leaf_diff:.3e} "
+                  f"(tolerance {tol:g})")
+        else:
+            bits = False
+            check(False, f"drill: no final metrics or checkpoints {last}")
+
+    # (c) the reduced step on the device against the CPU
+    rcfg = reduce_config(ARCHS[TRAIN_ARCH])
+    host_model = build_model(rcfg).init(0, "cpu")
+    dev_model = build_model(rcfg)
+    dev_model.to_empty(device=dev)
+    dev_model.load_state_dict(host_model.state_dict())
+    rbatch = make_pipeline(DataConfig(vocab=rcfg.vocab, seq_len=128,
+                                      global_batch=8)).batch_at(0)
+    losses = {}
+    for name, m_ in (("host", host_model), ("device", dev_model)):
+        loss, _ = m_.train_loss(rbatch)
+        loss.backward()
+        losses[name] = float(loss.detach())
+    card_loss_err = abs(losses["device"] - losses["host"]) \
+        / abs(losses["host"])
+    card_grad_errs = {n: rel_l2(p.grad.float().cpu(),
+                                host_model.get_parameter(n).grad.float())
+                      for n, p in dev_model.named_parameters()}
+    worst = max(card_grad_errs, key=card_grad_errs.get)
+    check(card_loss_err <= CARD_LOSS_TOL,
+          f"reduced loss on {device} {losses['device']} vs host "
+          f"{losses['host']}: rel {card_loss_err:.3e} > {CARD_LOSS_TOL:g}")
+    check(card_grad_errs[worst] <= CARD_GRAD_TOL,
+          f"reduced grads on {device} vs host: {worst} rel_l2 "
+          f"{card_grad_errs[worst]:.3e} > {CARD_GRAD_TOL:g}")
+
+    out = {
+        "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "seq": seq, "batch": batch, "microbatches": micro, "steps": steps,
+        "params": n_params, "param_gib": param_gib, "opt_state_gib": opt_gib,
+        "allocated_before_gib": base_gib, "max_memory_allocated_gib": peak_gib,
+        "init_s": init_s, "data_first_batch_s": data_first_s, "log": log,
+        "step_ms_median": med_ms, "tokens_per_s": tokens / med_ms * 1e3,
+        "bound": bnd, "share_of_bound": bnd["bound_ms"] / med_ms,
+        "split": split, "device_kernels": kernels, "launches": launches,
+        "routes": routes,
+        "remat": {"rel_l2_max": max(remat_errs), "bit_equal": remat_bits},
+        "drill": {"seconds": drill_s, "signalled_at_s":
+                  drill["signalled_at_s"], "preempted_at": stopped,
+                  "resumed_at": resumed, "loss_rel_diff": loss_diff,
+                  "leaf_rel_diff": leaf_diff, "bit_equal": bits,
+                  "runs": {k: {"rc": v["rc"], "seconds": v["seconds"],
+                               "events": events[k]}
+                           for k, v in runs.items()}},
+        "card_vs_host": {"loss": losses, "loss_rel": card_loss_err,
+                         "grad_rel_l2_max": card_grad_errs[worst],
+                         "grad_worst": worst},
+        "nvidia_smi": smi,
+    }
+    print(f"  {cfg.name} at {cfg.n_layers} of its layers, d {cfg.d_model}: "
+          f"{n_params / 1e9:.3f} B parameters, {param_gib:.2f} GiB, "
+          f"optimizer state {opt_gib:.2f} GiB; init {init_s:.2f} s; "
+          f"allocated before {base_gib if base_gib is None else round(base_gib, 2)} "
+          f"GiB, peak {peak_gib if peak_gib is None else round(peak_gib, 2)} "
+          f"GiB ({smi})")
+    for i, r in enumerate(log):
+        print(f"  step {i + 1}: loss {r['loss']:.4f} nll {r['nll']:.4f} "
+              f"grad_norm {r['grad_norm']:.4f} lr {r['lr']:.3e} "
+              f"{r['ms']:.1f} ms (data {r['data_ms']:.1f} ms) ({smi})")
+    print(f"  median step {med_ms:.1f} ms, {tokens / med_ms * 1e3:.0f} "
+          f"tokens/s; bound {bnd['bound_ms']:.1f} ms ({bnd['flops']:.4e} "
+          f"FLOP at {bnd['peak_flops']:.3g}/s: 6 N T {bnd['dense_flops']:.4e}"
+          f", plain attention {bnd['attention_flops']:.4e}, remat's blocks "
+          f"{bnd['remat_block_flops']:.4e}), share {bnd['bound_ms'] / med_ms:.3f}"
+          f" ({smi})")
+    print("  a step split, each part timed alone: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in split.items())
+        + f"; the pipeline's first batch (its table) {data_first_s:.2f} s "
+        f"({smi})")
+    if kernels is None or not kernels["busy_ms"]:
+        print("  one microbatch's device kernels: not measured")
+    else:
+        print(f"  one microbatch's forward and backward under the profiler: "
+              f"{kernels['wall_ms']:.1f} ms, device busy "
+              f"{kernels['busy_ms']:.1f} ms; by kernel (ms): " + "; ".join(
+                  f"{k['name'][:60]} {k['ms']:.1f} x{k['calls']}"
+                  for k in kernels["top"]) + f" ({smi})")
+    print(f"  kernel launches {sum(launches.values())}, routes {routes} "
+          f"(want plain {want_plain}); one block's grads with remat vs "
+          f"without: rel_l2 {max(remat_errs):.3e}, "
+          f"{'equal' if remat_bits else 'not equal'} to the bit")
+    print(f"  drill {drill_s:.1f} s: SIGTERM at {drill['signalled_at_s']} s,"
+          f" preempted at {stopped}, resumed at {resumed}; step "
+          f"{DRILL_STEPS} loss rel diff {loss_diff}, leaves rel diff "
+          f"{leaf_diff}, {'equal' if bits else 'not equal'} to the bit; runs "
+          + ", ".join(f"{k} {v['seconds']:.1f} s" for k, v in runs.items()))
+    print(f"  reduced step on {device} vs host: loss {losses['device']:.6f} "
+          f"vs {losses['host']:.6f} (rel {card_loss_err:.3e}), worst grad "
+          f"{worst} rel_l2 {card_grad_errs[worst]:.3e} ({smi})")
+    del host_model, dev_model
+    if cuda:
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="smoke run of the port on a card")
     ap.add_argument("--budget", type=int, default=100,
@@ -2728,6 +3290,13 @@ def main(argv=None) -> int:
         print(f"  lm phase {lm['seconds']:.1f} s (mark 60 s); attention "
               f"launches {lm['launches']}")
 
+    with phase("train"):
+        tr = train_check(nvidia_smi_line(), counts, zero_counts, failures)
+        record["train"] = tr
+        print(f"  train phase {tr['seconds']:.1f} s (mark 90 s); kernel "
+              f"launches {sum(tr['launches'].values())}; script so far "
+              f"{time.time() - STARTED:.1f} s")
+
     lines = [
         {"name": "gemm", "route": "cuda",
          "source": "src/repro_torch/csrc/gemm.cu",
@@ -2762,6 +3331,7 @@ def main(argv=None) -> int:
          "orchestrator_launches": orch["launches"].get("flash_attention", 0),
          "servedb_launches": sdb["launches"].get("flash_attention", 0),
          "lm_launches": lm["launches"],
+         "train_launches": tr["launches"]["flash_attention"],
          "build_s": build_s},
     ] + f32_lines
     for line in f32_lines:

@@ -8,8 +8,9 @@ Prefill attention runs the port's flash kernel
 (:func:`repro_torch.kernels.attention.ops.attention`, the Hopper
 counterpart of the Pallas kernel that the JAX package names as its
 deployment path behind this interface) wherever the kernel takes the
-call, as :func:`prefill_route` decides from the shapes before anything
-runs; everything else, decode included, runs :func:`_sdpa`, the plain
+call, as :func:`prefill_route` decides from the shapes and the grad state
+before anything runs; everything else, training (which the kernel, having
+no backward, never takes) and decode included, runs :func:`_sdpa`, the plain
 formulation of the JAX package's jnp attention.  :data:`ROUTES` counts the
 calls of :func:`gqa_forward` by route.  The JAX package's sharding
 constraints are no-ops on one device and are left out.
@@ -104,16 +105,23 @@ def _sdpa_chunked(q, k, v, *, window, causal):
 
 
 def prefill_route(q, k, *, window, causal, kv_override,
-                  impl="auto") -> str:
+                  impl="auto", v=None) -> str:
     """``"kernel"`` where the flash kernel takes this attention, else
-    ``"plain"``: under ``impl="auto"``, CUDA bf16 causal self-attention
-    with Tq = Tk, no window, a head dim the kernel is built for, and a
-    shape where some config of the ``flash_attention_h100`` space fits.
-    Decided from the shapes alone; once it says ``"kernel"``, a failing
+    ``"plain"``.  Where autograd would record through the attention
+    (grad enabled and q, k or v requiring grad) it is always ``"plain"``:
+    the kernel has no backward, as the JAX package's Pallas kernel has
+    none and its training path runs the jnp attention.  Otherwise, under
+    ``impl="auto"``, ``"kernel"`` for CUDA bf16 causal self-attention with
+    Tq = Tk, no window, a head dim the kernel is built for, and a shape
+    where some config of the ``flash_attention_h100`` space fits.
+    Decided before anything runs; once it says ``"kernel"``, a failing
     launch raises."""
     if impl not in IMPLS:
         raise ValueError(f"attention_impl must be one of {IMPLS}, not "
                          f"{impl!r}")
+    if torch.is_grad_enabled() and any(
+            getattr(t, "requires_grad", False) for t in (q, k, v)):
+        return "plain"
     b, tq, hq, d = q.shape
     tk, hkv = k.shape[1], k.shape[2]
     if impl == "plain" or q.device.type != "cuda" \
@@ -184,7 +192,7 @@ def gqa_forward(p, x, *, positions, window=None, causal=True, qk_norm=False,
         k = torch.repeat_interleave(k, kv_repeat, dim=2)
         v = torch.repeat_interleave(v, kv_repeat, dim=2)
     if prefill_route(q, k, window=window, causal=causal,
-                     kv_override=kv_override, impl=impl) == "kernel":
+                     kv_override=kv_override, impl=impl, v=v) == "kernel":
         out = _flash(q, k, v, kernel_config)
     else:
         ROUTES["plain"] += 1

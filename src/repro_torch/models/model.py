@@ -17,6 +17,7 @@ from typing import Any
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve
 from .attention import IMPLS
@@ -35,9 +36,15 @@ class Model(Params):
     """A model of ``cfg``: parameters ``embedding``, ``final_norm`` (and
     ``enc_norm``, ``patch_proj`` where the frontend has them), ``blocks``
     and ``encoder``.  ``attention_impl`` routes prefill attention:
-    ``"auto"`` runs the flash kernel wherever it takes the shape (see
-    :func:`repro_torch.models.attention.prefill_route`), ``"plain"``
-    never does."""
+    ``"auto"`` runs the flash kernel wherever it takes the shape and
+    autograd is not recording through it (see
+    :func:`repro_torch.models.attention.prefill_route`: a training
+    forward always runs the plain formulation, the kernel having no
+    backward), ``"plain"`` never does.  With ``cfg.remat`` set, a forward
+    that autograd records keeps no block's activations but its input and
+    recomputes them in the backward pass (:meth:`_block`), the
+    counterpart of the JAX package's ``jax.checkpoint`` of a layer
+    group."""
 
     def __init__(self, cfg: ModelConfig, attention_impl: str = "auto"):
         super().__init__()
@@ -102,25 +109,34 @@ class Model(Params):
         positions = torch.arange(frames.shape[1], device=self.device)[None]
         x = frames.to(torch.bfloat16)
         for layer in self.encoder:
-            x, _, _ = _block_forward(layer, x, cfg, ENC_SPEC,
-                                     positions=positions, causal=False,
-                                     impl=self.attention_impl)
+            x, _, _ = self._block(layer, x, ENC_SPEC, positions=positions,
+                                  causal=False)
         return rms_norm(x, self["enc_norm"], cfg.norm_eps)
+
+    def _block(self, layer, x, spec, **kwargs):
+        """``_block_forward`` of one block under this model's attention
+        route; where ``cfg.remat`` is set and autograd records, through
+        ``torch.utils.checkpoint`` (one block a layer, the port's layer
+        group), which gives the same numbers."""
+        kwargs["impl"] = self.attention_impl
+        if self.cfg.remat and torch.is_grad_enabled():
+            return checkpoint(_block_forward, layer, x, self.cfg, spec,
+                              use_reentrant=False, **kwargs)
+        return _block_forward(layer, x, self.cfg, spec, **kwargs)
 
     # ---------------------------------------------------------------- #
     # full-sequence forward (training / prefill)
     # ---------------------------------------------------------------- #
     def _stack_forward(self, x, *, enc_out=None, make_cache=False,
                        kernel_config=None):
-        cfg = self.cfg
         positions = torch.arange(x.shape[1], device=x.device)[None]
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         caches = []
         for i, layer in enumerate(self.blocks):
-            x, c, a = _block_forward(
-                layer, x, cfg, self.pattern[i % len(self.pattern)],
+            x, c, a = self._block(
+                layer, x, self.pattern[i % len(self.pattern)],
                 positions=positions, enc_out=enc_out, make_cache=make_cache,
-                impl=self.attention_impl, kernel_config=kernel_config)
+                kernel_config=kernel_config)
             caches.append(c)
             aux = aux + a
         return x, aux, (caches if make_cache else None)

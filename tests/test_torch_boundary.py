@@ -33,8 +33,10 @@ from repro_torch.orchestrator import (SessionSpec, make_problem,  # noqa: E402
 
 from repro_torch.configs import ARCHS, reduce_config  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
+from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serve import ServingEngine  # noqa: E402
+from repro_torch.train import TrainLoop  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -118,7 +120,15 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.serve",
             "repro_torch.serve.decode",
             "repro_torch.launch",
-            "repro_torch.launch.serve"} <= set(got["modules"])
+            "repro_torch.launch.serve",
+            "repro_torch.launch.steps",
+            "repro_torch.launch.train",
+            "repro_torch.data",
+            "repro_torch.data.pipeline",
+            "repro_torch.train",
+            "repro_torch.train.checkpoint",
+            "repro_torch.train.optimizer",
+            "repro_torch.train.train_loop"} <= set(got["modules"])
     assert got["bad"] == [], f"repro_torch loaded {got['bad']}"
 
 
@@ -171,6 +181,9 @@ ENTRY_POINTS = {
     "ServingEngine": lambda: ServingEngine(_tiny_config()),
     "launch.serve.main": lambda: serve_launcher.main(
         ["--arch", "qwen3-8b", "--reduced", "--requests", "1"]),
+    "TrainLoop": lambda: TrainLoop(_tiny_config()),
+    "launch.train.main": lambda: train_launcher.main(
+        ["--arch", "qwen3-8b", "--reduced", "--steps", "1"]),
 }
 
 
@@ -183,9 +196,15 @@ def test_entry_point_defaults_to_the_card(entry, monkeypatch):
         ENTRY_POINTS[entry]()
 
 
-def test_entry_points_run_on_the_host_when_asked(monkeypatch):
+def test_entry_points_run_on_the_host_when_asked(monkeypatch, tmp_path):
     _no_card(monkeypatch)
     assert devmod.resolve("cpu").type == "cpu"
+    assert TrainLoop(_tiny_config(), "cpu").device.type == "cpu"
+    out = train_launcher.main(["--arch", "qwen3-8b", "--reduced", "--device",
+                               "cpu", "--steps", "1", "--log-every", "1",
+                               "--global-batch", "2", "--seq-len", "16",
+                               "--ckpt-dir", str(tmp_path)])
+    assert out["final_step"] == 1 and out["device"] == "cpu"
     prob = GemmProblem(device="cpu")
     assert prob.arch == "cpu" and prob.name == "gemm_h100"
     x = inputs_from_numpy(_ARRAYS, device="cpu")

@@ -1,7 +1,8 @@
 """The port on a Hopper card: the CUDA GEMM, flash attention, N-body, point
 in polygon, 2-D convolution, Hotspot, ExpDist and dedispersion against
-their plain versions, the measured evaluator, a screened session, and the
-LM stack's prefill attention on the flash kernel.  Marked ``cuda``; each test
+their plain versions, the measured evaluator, a screened session, the
+LM stack's prefill attention on the flash kernel, and its training
+attention on the plain route.  Marked ``cuda``; each test
 skips on a host without an sm_90 device.  This file imports no JAX, so it
 also runs where only the port is installed:
 
@@ -638,3 +639,63 @@ def test_lm_plan_config_that_does_not_fit_is_not_passed(hopper,
     model.prefill({"tokens": tokens}, kernel_config=fits)
     assert seen[2:] == [fits, fits]
     assert ROUTES["kernel:plan"] == 2
+
+
+def _lm_batch(n: int = 256) -> dict:
+    tokens = torch.randint(0, 1024, (1, n), device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(2))
+    labels = torch.roll(tokens, -1, dims=1)
+    labels[:, -1] = -1
+    return {"tokens": tokens, "labels": labels}
+
+
+def test_lm_training_attention_keeps_its_gradient(hopper):
+    """A ``train_loss`` backward at a shape the flash kernel takes (heads of
+    128, 256 tokens) runs the plain route under ``attention_impl="auto"``
+    (the kernel has no backward): nothing is launched, and the attention
+    weights' gradients equal the ``"plain"`` model's to the bit (the same
+    kernels on the same inputs), the rest within 1e-6 rel-L2."""
+    from repro_torch.models.attention import ROUTES
+    from repro_torch.quickstart import rel_l2
+    model = _card_lm()
+    batch = _lm_batch()
+    ROUTES.clear()
+    before = fops.attention.launches
+    grads = {}
+    for name, m in (("auto", model),
+                    ("plain", model.with_attention_impl("plain"))):
+        model.zero_grad(set_to_none=True)          # the weights are shared
+        loss, _ = m.train_loss(batch)
+        loss.backward()
+        grads[name] = {n: p.grad.clone() for n, p in model.named_parameters()}
+    assert fops.attention.launches == before
+    # two layers, two models, each forward and remat's recompute
+    assert model.cfg.remat and dict(ROUTES) == {"plain": 8}
+    for layer in (0, 1):
+        for w in ("wq", "wk", "wv", "q_norm", "k_norm"):
+            name = f"blocks.{layer}.attn.{w}"
+            assert grads["auto"][name].abs().sum() > 0, name
+            assert torch.equal(grads["auto"][name], grads["plain"][name]), \
+                name
+    for name, g in grads["plain"].items():
+        assert rel_l2(grads["auto"][name].float(), g.float()) <= 1e-6, name
+
+
+def test_lm_serving_prefill_stays_on_the_kernel_route(hopper):
+    """Where autograd records nothing (``prefill``, or a forward under
+    ``no_grad``) the kernel still takes the attention, counted under
+    ``ROUTES["kernel:*"]``; the same forward with grad runs plain."""
+    from repro_torch.models.attention import ROUTES
+    model = _card_lm()
+    batch = _lm_batch()
+    ROUTES.clear()
+    before = fops.attention.launches
+    model.prefill({"tokens": batch["tokens"]})
+    with torch.no_grad():
+        model(batch)
+    assert fops.attention.launches - before == 4
+    assert ROUTES["kernel:plan"] + ROUTES["kernel:resolved"] == 4
+    assert ROUTES["plain"] == 0
+    logits, _, _ = model(batch)
+    assert logits.requires_grad
+    assert fops.attention.launches - before == 4 and ROUTES["plain"] == 2

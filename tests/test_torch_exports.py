@@ -1,8 +1,9 @@
 """The port's package exports against the JAX package's: ``__all__`` of
 ``core``, ``core.tuners``, ``core.surrogate``, ``telemetry``, ``kernels``,
 ``orchestrator``, ``staticcheck``, ``servedb``, ``kernels.attention``,
-``models``, ``configs`` and ``serve`` name the same things, apart from the named differences below, and every
-exported name resolves."""
+``models``, ``configs``, ``serve``, ``train`` and ``data`` name the same
+things, apart from the named differences below, and every exported name
+resolves."""
 
 from __future__ import annotations
 
@@ -30,6 +31,8 @@ DIFFERENCES = {
     "models": (set(), set()),
     "configs": (set(), set()),
     "serve": (set(), set()),
+    "train": (set(), set()),
+    "data": (set(), set()),
 }
 
 
