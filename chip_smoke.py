@@ -209,6 +209,25 @@ Phases, each timed:
                ``DRILL_TOL``), and the reduced step on the card against
                the CPU (``CARD_LOSS_TOL``, ``CARD_GRAD_TOL``)
                (``train_launches`` in attention's line).
+13. dist     — distribution, the roofline and the dry run (``dist_check``):
+               on a one-rank NCCL mesh (``launch.mesh.make_host_mesh``;
+               a failed init fails the run), (a) one train step of
+               qwen3-8b at its published widths cut to 2 layers over one
+               4096-token sequence with its parameters placed by
+               ``param_shardings``, against the same step unsharded (loss
+               1e-3, grads and updated masters 5e-2 rel-L2, phase 12's
+               bounds; nothing launched), (b) a prefill at 4 layers of a
+               2048-token prompt whose attention runs the flash kernel on
+               each rank's local shards (exactly 4 launches, logits within
+               ``LM_TOL`` of the unsharded model's); (c) the roofline of
+               phase 12's exact step traced on fake tensors: its three
+               terms, bound, useful-FLOPs ratio and phase 12's measured
+               median step over the ideal overlapped time, beside phase
+               12's hand-reckoned bound; (d) ``python -m
+               repro_torch.launch.dryrun --arch qwen3-8b --shape train_4k
+               --layers 2`` on its fake 16 x 16 process group, its JSON
+               read back (terms, mfu, peak GiB per chip, seconds)
+               (``dist_launches`` in attention's line).
 
 Prints the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  A kernel's ``launches`` counts its wrapper's calls on its path;
@@ -222,7 +241,9 @@ without the rest of the repository.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -2085,6 +2106,267 @@ def train_check(smi: str, counts, zero_counts, failures: list[str], *,
     return out
 
 
+#: phase 13 ``dist`` (``dist_check``): (a) one train step of qwen3-8b at
+#: its published widths cut to ``DIST_STEP_LAYERS`` layers over one
+#: sequence of ``DIST_STEP_SEQ`` tokens, its parameters placed by
+#: ``param_shardings`` on a one-rank (data, model) mesh, against the same
+#: step unsharded, within phase 12's card-vs-host bounds (``CARD_LOSS_TOL``,
+#: ``CARD_GRAD_TOL``); (b) a prefill at ``DIST_PREFILL_LAYERS`` layers of
+#: a ``DIST_PREFILL_SEQ``-token prompt on that mesh, attention on the
+#: flash kernel through each rank's local shards (one launch a layer),
+#: against the unsharded model's logits (``LM_TOL``)
+DIST_STEP_LAYERS, DIST_STEP_SEQ = 2, 4096
+DIST_PREFILL_LAYERS, DIST_PREFILL_SEQ = 4, 2048
+#: (d): the dry run's cell and depth: qwen3-8b's train_4k on the fake 16 x
+#: 16 mesh, cut to ``DRYRUN_LAYERS`` of 36 layers for the phase's time
+#: (its trace of all 36 layers and 16 microbatches takes minutes)
+DRYRUN_ARGS = ("--arch", "qwen3-8b", "--shape", "train_4k")
+DRYRUN_LAYERS = 2
+
+
+def dist_check(smi: str, counts, zero_counts, failures: list[str], *,
+               cfg=None, device: str = "cuda",
+               step_layers: int = DIST_STEP_LAYERS,
+               step_seq: int = DIST_STEP_SEQ,
+               prefill_layers: int = DIST_PREFILL_LAYERS,
+               prefill_seq: int = DIST_PREFILL_SEQ, train: dict | None = None,
+               roof_cfg=None, roof_batch: int = TRAIN_BATCH,
+               roof_micro: int = TRAIN_MICRO, dryrun_args=DRYRUN_ARGS, dryrun_layers: int = DRYRUN_LAYERS,
+               dryrun_env=None) -> dict:
+    """Distribution, the roofline and the dry run.  (a) and (b) as the
+    constants above say, on ``cfg`` (default ``DIST_ARCH``) made on
+    ``device`` from seed 0, on ``launch.mesh.make_host_mesh``'s one-rank
+    mesh (NCCL on the card: a failed init fails the run); every kernel's
+    count set to 0 just before each sharded run and read just after: (a)
+    launches nothing (training attention is plain), (b) launches the
+    flash kernel once a layer.  (c) The roofline of phase 12's exact step
+    (``roof_cfg``, default ``TRAIN_ARCH`` at ``TRAIN_LAYERS`` layers, 4 x
+    4096 tokens in 4 microbatches), traced on fake tensors on ``device``
+    (``launch.steps.lower_cell``): its three terms, bound and useful-FLOPs
+    ratio, and ``train``'s measured median step (phase 12's) over the
+    ideal overlapped time, beside phase 12's hand-reckoned bound.  (d) The
+    dry run's CLI (``python -m repro_torch.launch.dryrun``) as a
+    subprocess on its fake 16 x 16 mesh, its JSON read back.  Prints each
+    number beside ``smi``; returns what it measured."""
+    import dataclasses
+    import math
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import ARCHS, SHAPES
+    from repro_torch.data import DataConfig, make_pipeline
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import lower_cell, plan_cell
+    from repro_torch.models import build_model
+    from repro_torch.models.attention import ROUTES
+    from repro_torch.quickstart import rel_l2
+    from repro_torch.roofline import analyze_trace, model_flops
+    from repro_torch.train.optimizer import (OptimizerConfig, apply_updates,
+                                             init_opt_state)
+    t_phase = time.perf_counter()
+    base = cfg or ARCHS[TRAIN_ARCH]
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    gib = 2.0 ** 30
+
+    def check(ok: bool, msg: str) -> None:
+        if not ok:
+            failures.append(f"dist: {msg}")
+
+    def twins(layers: int):
+        """A model at ``layers`` layers from seed 0 and a copy of it whose
+        parameters are placed by their specs on the mesh."""
+        c = dataclasses.replace(base, n_layers=layers)
+        ref = build_model(c).init(0, dev)
+        sh = build_model(c)
+        sh.to_empty(device=dev)
+        sh.load_state_dict(ref.state_dict())
+        shd.place_params(sh, shd.param_shardings(
+            dict(sh.named_parameters()), sh.param_axes(), mesh), mesh)
+        return c, ref, sh
+
+    def placed(batch):
+        return {k: shd.place(v, shd.batch_spec(tuple(v.shape), mesh), mesh)
+                for k, v in batch.items()}
+
+    t0 = time.perf_counter()
+    mesh = make_host_mesh(1, 1, device=dev)
+    mesh_s = time.perf_counter() - t0
+    backend = dist.get_backend()
+
+    # (a) a sharded train step against the unsharded one
+    t0 = time.perf_counter()
+    ca, ref, sh = twins(step_layers)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in make_pipeline(
+        DataConfig(vocab=ca.vocab, seq_len=step_seq, global_batch=1))
+        .batch_at(0).items()}
+    opt_cfg = OptimizerConfig(total_steps=4, warmup_steps=1)
+    loss_u, _ = ref.train_loss(batch)
+    loss_u.backward()
+    zero_counts()
+    ROUTES.clear()
+    with shd.use_mesh(mesh):
+        loss_s, _ = sh.train_loss(placed(batch))
+        loss_s.backward()
+    launches_a, routes_a = counts(), dict(ROUTES)
+    loss_a = (float(loss_u.detach()), float(loss_s.detach().full_tensor()))
+    loss_err = abs(loss_a[1] - loss_a[0]) / abs(loss_a[0])
+    grad_errs = {n: rel_l2(p.grad.full_tensor().float(),
+                           ref.get_parameter(n).grad.float())
+                 for n, p in sh.named_parameters()}
+    worst = max(grad_errs, key=grad_errs.get)
+    updates = {}
+    for name, m_ in (("unsharded", ref), ("sharded", sh)):
+        params = dict(m_.named_parameters())
+        state = init_opt_state(opt_cfg, params)
+        with shd.use_mesh(mesh) if name == "sharded" else \
+                contextlib.nullcontext():
+            apply_updates(opt_cfg, params, state,
+                          {k: p.grad for k, p in params.items()})
+        updates[name] = state["master"]
+    update_err = max(rel_l2(updates["sharded"][k].full_tensor(),
+                            updates["unsharded"][k])
+                     for k in updates["unsharded"])
+    step_s = time.perf_counter() - t0
+    check(all(v == 0 for v in launches_a.values()),
+          f"(a) kernels launched by the sharded train step: {launches_a}")
+    check(loss_err <= CARD_LOSS_TOL,
+          f"(a) sharded loss {loss_a[1]} vs unsharded {loss_a[0]}: rel "
+          f"{loss_err:.3e} > {CARD_LOSS_TOL:g}")
+    check(grad_errs[worst] <= CARD_GRAD_TOL and update_err <= CARD_GRAD_TOL,
+          f"(a) sharded grads vs unsharded: {worst} rel_l2 "
+          f"{grad_errs[worst]:.3e}, updated masters {update_err:.3e} > "
+          f"{CARD_GRAD_TOL:g}")
+    placements = {str(p.placements) for p in sh.parameters()}
+    del ref, sh, updates, batch, loss_u, loss_s
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (b) a sharded prefill with attention on the kernel
+    t0 = time.perf_counter()
+    cb, ref, sh = twins(prefill_layers)
+    tokens = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cb.vocab, (1, prefill_seq)), device=dev)
+    want = ref.prefill({"tokens": tokens})[0]
+    zero_counts()
+    ROUTES.clear()
+    with shd.use_mesh(mesh):
+        got = sh.prefill(placed({"tokens": tokens}))[0]
+    launches_b, routes_b = counts(), dict(ROUTES)
+    prefill_err = rel_l2(got.full_tensor().float(), want.float())
+    prefill_s = time.perf_counter() - t0
+    want_launch = prefill_layers if cuda else 0
+    check(launches_b.get("flash_attention", 0) == want_launch and sum(
+        launches_b.values()) == want_launch,
+          f"(b) sharded prefill launches {launches_b}, want flash_attention "
+          f"{want_launch}")
+    check(prefill_err <= LM_TOL,
+          f"(b) sharded prefill logits vs unsharded: rel_l2 "
+          f"{prefill_err:.3e} > {LM_TOL:g}")
+    del ref, sh, want, got
+    dist.destroy_process_group()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (c) the roofline of phase 12's step, traced on fake tensors
+    t0 = time.perf_counter()
+    cc = roof_cfg or dataclasses.replace(ARCHS[TRAIN_ARCH],
+                                         n_layers=TRAIN_LAYERS)
+    plan = plan_cell(cc, "train_4k", shd.AbstractMesh((1, 1),
+                                                      ("data", "model")),
+                     opt_cfg=OptimizerConfig(total_steps=TRAIN_STEPS,
+                                             warmup_steps=1),
+                     microbatches=roof_micro, global_batch=roof_batch)
+    trace = lower_cell(plan, None, device=dev)
+    roof_seq = SHAPES["train_4k"]["seq_len"]
+    rep = analyze_trace(trace, chips=1, arch=cc.name, shape="train_4k",
+                        mesh=f"1 (batch {roof_batch})",
+                        model_flops_value=model_flops(cc, {
+                            "kind": "train", "global_batch": roof_batch,
+                            "seq_len": roof_seq}))
+    roof_s = time.perf_counter() - t0
+    roof = dict(rep.to_dict(), trace_s=trace.seconds, ops=trace.ops,
+                seconds=roof_s)
+    measured = train["step_ms_median"] if train else None
+    hand = train["bound"]["bound_ms"] if train else None
+    if measured is not None:
+        roof["measured_over_overlap"] = measured / (rep.t_total_overlap * 1e3)
+    check(all(math.isfinite(v) and v > 0 for v in (
+        rep.t_compute, rep.t_memory)) and rep.t_collective == 0.0,
+          f"(c) roofline terms {rep.t_compute}, {rep.t_memory}, "
+          f"{rep.t_collective}")
+
+    # (d) the dry run's CLI on its fake 16 x 16 mesh
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun") as out:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+               *dryrun_args, "--layers", str(dryrun_layers), "--out", out]
+        env = dict(dryrun_env or os.environ,
+                   PYTHONPATH=str(ROOT / "src"))
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                           timeout=600)
+        dry_s = time.perf_counter() - t0
+        files = list(Path(out).glob("*.json"))
+        check(r.returncode == 0 and len(files) == 1,
+              f"(d) dry run exit {r.returncode}: {r.stderr[-2000:]}")
+        dry = json.loads(files[0].read_text()) if files else {}
+
+    out = {
+        "backend": backend, "mesh_s": mesh_s,
+        "step": {"layers": step_layers, "seq": step_seq, "loss": loss_a,
+                 "loss_rel": loss_err, "grad_rel_l2_max": grad_errs[worst],
+                 "grad_worst": worst, "update_rel_l2_max": update_err,
+                 "launches": launches_a, "routes": routes_a,
+                 "placements": sorted(placements), "seconds": step_s},
+        "prefill": {"layers": prefill_layers, "seq": prefill_seq,
+                    "rel_l2": prefill_err, "launches": launches_b,
+                    "routes": routes_b, "seconds": prefill_s},
+        "roofline": roof, "hand_bound_ms": hand, "measured_step_ms": measured,
+        "dryrun": {"cmd": cmd[1:], "seconds": dry_s, "json": dry},
+        "launches": launches_b.get("flash_attention", 0),
+        "nvidia_smi": smi,
+    }
+    print(f"  mesh {dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))} on "
+          f"{backend} in {mesh_s:.2f} s ({smi})")
+    print(f"  (a) {ca.name} at {step_layers} layers, {step_seq} tokens: loss "
+          f"sharded {loss_a[1]:.6f} vs {loss_a[0]:.6f} (rel {loss_err:.3e}), "
+          f"worst grad {worst} rel_l2 {grad_errs[worst]:.3e}, updated "
+          f"masters {update_err:.3e}; launches {sum(launches_a.values())}, "
+          f"routes {routes_a}; {step_s:.1f} s ({smi})")
+    print(f"  (b) prefill at {prefill_layers} layers, {prefill_seq} tokens: "
+          f"logits rel_l2 {prefill_err:.3e}; flash launches "
+          f"{launches_b.get('flash_attention', 0)}, routes {routes_b}; "
+          f"{prefill_s:.1f} s ({smi})")
+    print(f"  (c) roofline of phase 12's step ({cc.n_layers} layers, "
+          f"{roof_batch} x {roof_seq} tokens in {roof_micro} microbatches, "
+          f"traced in {trace.seconds:.1f} s, {trace.ops} ops): compute "
+          f"{rep.t_compute * 1e3:.1f} ms ({rep.flops_per_chip:.4e} FLOP), "
+          f"memory {rep.t_memory * 1e3:.1f} ms ({rep.hbm_bytes_per_chip:.4e}"
+          f" B), collective {rep.t_collective * 1e3:.1f} ms; bound "
+          f"{rep.bound}, useful_flops {rep.useful_flops_ratio:.3f}, peak "
+          f"{rep.peak_memory_per_chip / gib:.2f} GiB; measured median step "
+          f"{measured} ms = {roof.get('measured_over_overlap')} x "
+          f"t_total_overlap {rep.t_total_overlap * 1e3:.1f} ms; phase 12's "
+          f"hand bound {hand} ms; torch {torch.__version__} ({smi})")
+    if dry:
+        print(f"  (d) dry run {dry.get('arch')} {dry.get('shape')} "
+              f"{dry.get('mesh')} at {dry.get('n_layers')} layers, "
+              f"{dry.get('microbatches')} microbatches: compute "
+              f"{dry['t_compute'] * 1e3:.3f} ms, memory "
+              f"{dry['t_memory'] * 1e3:.3f} ms, collective "
+              f"{dry['t_collective'] * 1e3:.3f} ms ({dry['coll_by_op']}); "
+              f"bound {dry['bound']}, mfu {dry['mfu']:.4f}, useful_flops "
+              f"{dry['useful_flops_ratio']:.3f}, peak "
+              f"{dry['peak_memory_per_chip'] / gib:.2f} GiB per chip; trace "
+              f"{dry['compile_s']:.1f} s, {dry_s:.1f} s with the process; "
+              f"torch {dry.get('torch_version')} ({smi})")
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="smoke run of the port on a card")
     ap.add_argument("--budget", type=int, default=100,
@@ -3297,6 +3579,14 @@ def main(argv=None) -> int:
               f"launches {sum(tr['launches'].values())}; script so far "
               f"{time.time() - STARTED:.1f} s")
 
+    with phase("dist"):
+        dst = dist_check(nvidia_smi_line(), counts, zero_counts, failures,
+                         train=tr)
+        record["dist"] = dst
+        print(f"  dist phase {dst['seconds']:.1f} s (mark 60 s); attention "
+              f"launches {dst['launches']}; script so far "
+              f"{time.time() - STARTED:.1f} s")
+
     lines = [
         {"name": "gemm", "route": "cuda",
          "source": "src/repro_torch/csrc/gemm.cu",
@@ -3332,6 +3622,7 @@ def main(argv=None) -> int:
          "servedb_launches": sdb["launches"].get("flash_attention", 0),
          "lm_launches": lm["launches"],
          "train_launches": tr["launches"]["flash_attention"],
+         "dist_launches": dst["launches"],
          "build_s": build_s},
     ] + f32_lines
     for line in f32_lines:

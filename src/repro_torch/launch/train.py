@@ -1,13 +1,23 @@
 """Training launcher.
 
     python -m repro_torch.launch.train --arch qwen3-8b --shape train_4k \
-        --steps 200 --ckpt-dir CKPT [--reduced] [--device cpu]
+        --steps 200 --ckpt-dir CKPT [--reduced] [--device cpu] \
+        [--mesh host|production]
 
 The port of ``repro.launch.train``: its flags, with ``--device`` (default
-the card) in place of ``--mesh``.  ``--reduced --device cpu`` runs the
-same code end to end on the host on a tiny same-family config.  Random
-weights come from ``Model.init`` with the data seed; a reduced run takes
-8 sequences of 128 tokens a step unless told otherwise.
+the card) beside ``--mesh``.  Without ``--mesh`` the run is on the one
+device; ``--mesh host`` shards it over the process group's ranks (a
+(data, model) mesh with ``model`` 1, as the JAX launcher's,
+``launch.mesh.make_host_mesh``: under ``torchrun`` the group comes from
+its environment, else it is this one process) and
+``--mesh production`` over the 16x16 production mesh (256 ranks).
+``--reduced --device cpu`` runs the same code end to end on the host on a
+tiny same-family config.  Random weights come from ``Model.init`` with
+the data seed; a reduced run takes 8 sequences of 128 tokens a step
+unless told otherwise.
+
+    torchrun --nproc-per-node 8 -m repro_torch.launch.train --arch \
+        qwen3-8b --reduced --mesh host --steps 20 --ckpt-dir CKPT
 
 Fault tolerance in practice (see train/train_loop.py): auto-resume from
 the newest committed checkpoint, SIGTERM-safe preemption checkpointing,
@@ -15,7 +25,8 @@ straggler watchdog events, resumable data pipeline keyed only by step
 index.  Re-launching this command is the whole recovery protocol.
 
 Prints a line a logged step and, last, the JSON summary (the final step,
-the events and the device); ``main`` returns the summary.
+the events, the device and the mesh), on rank 0 alone under a mesh;
+``main`` returns the summary.
 """
 
 from __future__ import annotations
@@ -40,6 +51,8 @@ def main(argv=None) -> dict:
                     help="tiny same-family config (host smoke runs)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
+    ap.add_argument("--mesh", choices=("host", "production"), default=None,
+                    help="shard over a mesh (default: one device)")
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--global-batch", type=int, default=None)
     ap.add_argument("--seq-len", type=int, default=None)
@@ -53,6 +66,17 @@ def main(argv=None) -> dict:
     from ..train.optimizer import OptimizerConfig
     from ..train.train_loop import TrainLoop, TrainLoopConfig
 
+    from ..device import resolve
+    from .mesh import init_from_env, make_host_mesh, make_production_mesh
+
+    mesh = None
+    if args.mesh:
+        device = resolve(args.device)
+        init_from_env(device)
+        mesh = make_production_mesh(device_type=device.type) \
+            if args.mesh == "production" else \
+            make_host_mesh(device=device)
+    lead = mesh is None or mesh.get_rank() == 0   # one rank prints, logs
     cfg = ARCHS[args.arch]
     if args.reduced:
         cfg = reduce_config(cfg)
@@ -70,10 +94,13 @@ def main(argv=None) -> dict:
             total_steps=args.steps, log_every=args.log_every,
             ckpt_every=args.ckpt_every, ckpt_dir=args.ckpt_dir,
             auto_resume=not args.no_resume,
-            microbatches=args.microbatches, metrics_path=args.metrics),
-        data_cfg=data_cfg)
+            microbatches=args.microbatches,
+            metrics_path=args.metrics if lead else None),
+        data_cfg=data_cfg, mesh=mesh)
 
     def log(step, m):
+        if not lead:
+            return
         print(f"step {step:5d}  loss {m.get('loss', float('nan')):8.4f}  "
               f"nll {m.get('nll', float('nan')):8.4f}  "
               f"gnorm {m.get('grad_norm', float('nan')):7.3f}  "
@@ -81,8 +108,11 @@ def main(argv=None) -> dict:
 
     state = loop.run(on_metrics=log)
     summary = {"final_step": state.step, "events": loop.events,
-               "device": str(loop.device)}
-    print(json.dumps(summary, indent=1), flush=True)
+               "device": str(loop.device),
+               "mesh": None if mesh is None else dict(zip(
+                   mesh.mesh_dim_names, tuple(mesh.shape)))}
+    if lead:
+        print(json.dumps(summary, indent=1), flush=True)
     return summary
 
 

@@ -12,8 +12,15 @@ call, as :func:`prefill_route` decides from the shapes and the grad state
 before anything runs; everything else, training (which the kernel, having
 no backward, never takes) and decode included, runs :func:`_sdpa`, the plain
 formulation of the JAX package's jnp attention.  :data:`ROUTES` counts the
-calls of :func:`gqa_forward` by route.  The JAX package's sharding
-constraints are no-ops on one device and are left out.
+calls of :func:`gqa_forward` by route.
+
+The JAX package's sharding constraints are here, at its points, through
+:func:`repro_torch.distributed.sharding.constrain`: the argument itself
+without an active mesh, a DTensor redistributed under one.  Under a mesh
+the flash kernel runs on each rank's local shards of q, k and v where
+they are sharded over batch or heads alone, alike (:func:`prefill_route`),
+and its output is wrapped back with their placements; it never receives a
+DTensor.
 """
 
 from __future__ import annotations
@@ -21,12 +28,15 @@ from __future__ import annotations
 from collections import Counter
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from ..distributed.sharding import (axis_size, constrain, local_region,
+                                    redistribute, shard_span)
 from ..kernels.attention import kernel as flash_kernel
 from ..kernels.attention import ops as flash_ops
 from ..kernels.attention.space import build_space as flash_space
 from ..kernels.common import config_at
-from .layers import Params, apply_rope, rms_norm
+from .layers import Params, apply_rope, einsum, rms_norm
 
 NEG_INF = -1e30
 
@@ -40,19 +50,54 @@ ROUTES: Counter = Counter()
 IMPLS = ("auto", "plain")
 
 
+def _tp_size() -> int:
+    return axis_size("model")
+
+
+def _constrain_qkv(q, k, v, *, opt: bool):
+    """Beyond-paper SPMD policy (opt_attn): pin attention activations so the
+    partitioner never invents full-tensor rematerializations.
+
+    * heads divisible by TP -> heads on ``model`` (zero attention-internal
+      collectives when kv heads are replicated to TP, see ``kv_repeat``);
+    * otherwise -> sequence on ``model`` for q (context parallelism), k/v
+      replicated across ``model`` (partial-softmax psums are tiny vs the
+      full-remat copies the baseline suffers).
+    """
+    if not opt:
+        return q, k, v, None
+    tp = _tp_size()
+    h, hkv = q.shape[2], k.shape[2]
+    if tp > 1 and h % tp == 0 and hkv % tp == 0:
+        q = constrain(q, ("pod", "data"), None, "model", None)
+        k = constrain(k, ("pod", "data"), None, "model", None)
+        v = constrain(v, ("pod", "data"), None, "model", None)
+        return q, k, v, "heads"
+    if tp > 1 and q.shape[1] % tp == 0 and q.shape[1] > 1:
+        q = constrain(q, ("pod", "data"), "model", None, None)
+        k = constrain(k, ("pod", "data"), None, None, None)
+        v = constrain(v, ("pod", "data"), None, None, None)
+        return q, k, v, "seq"
+    return q, k, v, None
+
+
 # --------------------------------------------------------------------- #
 # GQA
 # --------------------------------------------------------------------- #
 def make_gqa(d_model, n_heads, n_kv, d_head, qk_norm=False) -> Params:
     s = d_model ** -0.5
     p = Params()
-    p.add("wq", (d_model, n_heads, d_head), s)
-    p.add("wk", (d_model, n_kv, d_head), s)
-    p.add("wv", (d_model, n_kv, d_head), s)
-    p.add("wo", (n_heads, d_head, d_model), (n_heads * d_head) ** -0.5)
+    p.add("wq", (d_model, n_heads, d_head), s,
+          axes=("embed", "heads", "head_dim"))
+    p.add("wk", (d_model, n_kv, d_head), s,
+          axes=("embed", "kv_heads", "head_dim"))
+    p.add("wv", (d_model, n_kv, d_head), s,
+          axes=("embed", "kv_heads", "head_dim"))
+    p.add("wo", (n_heads, d_head, d_model), (n_heads * d_head) ** -0.5,
+          axes=("heads", "head_dim", "embed"))
     if qk_norm:
-        p.add("q_norm", (d_head,), "ones", torch.float32)
-        p.add("k_norm", (d_head,), "ones", torch.float32)
+        p.add("q_norm", (d_head,), "ones", torch.float32, ("head_dim",))
+        p.add("k_norm", (d_head,), "ones", torch.float32, ("head_dim",))
     return p
 
 
@@ -72,16 +117,61 @@ def _mask_bias(tq, tk, offset, window, causal=True, device=None):
 def _sdpa(q, k, v, bias):
     """``q``/``k``: (B,T,H,Dh) with GQA head grouping; ``v`` may have a
     different value dim.  f32 logits and softmax, the weights cast to v's
-    dtype for the product with v."""
+    dtype for the product with v.  DTensors go through
+    :func:`_sdpa_sharded`."""
+    if isinstance(q, DTensor):
+        return _sdpa_sharded(q, k, v, bias)
     b, tq, h, dh = q.shape
     hkv = k.shape[2]
     g = h // hkv
     q = q.reshape(b, tq, hkv, g, dh)
-    logits = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float())
+    logits = einsum("bqhgd,bkhd->bhgqk", q.float(), k.float())
     logits = logits * (dh ** -0.5) + bias
     w = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", w.to(v.dtype), v)
+    out = einsum("bhgqk,bkhd->bqhgd", w.to(v.dtype), v)
     return out.reshape(b, tq, h, v.shape[-1])
+
+
+def _sdpa_sharded(q, k, v, bias):
+    """:func:`_sdpa` of DTensor q, k and v on each rank's local shards:
+    attention is independent across batch and heads, so a mesh dim on
+    which q, k and v are all sharded over batch (dim 0) or all over heads
+    (dim 2) stays so.  On one where q alone shards its heads (kv heads
+    that TP does not divide), q stays so and each rank takes the kv heads
+    its q heads read (gathered, then cut: whole GQA groups, or one kv head
+    for a part of a group).  On any other mesh dim the three are
+    replicated first (a sequence-sharded q, a pending sum).  The output
+    carries q's placements as the local call ran; ``bias``, a plain
+    tensor, is cut to the local batch where it has one (decode's per-slot
+    rows)."""
+    mesh = q.device_mesh
+    heads = Shard(2)
+    wq, wkv = [], []
+    for pq, pk, pv in zip(q.placements, k.placements, v.placements):
+        if pq == pk == pv and pq in (Shard(0), heads):
+            wq.append(pq), wkv.append(pq)
+        elif pq == heads:
+            wq.append(pq), wkv.append(Replicate())
+        else:
+            wq.append(Replicate()), wkv.append(Replicate())
+    lo, n = shard_span(q.shape[2], mesh, wq, 2)
+    kv = slice(None)
+    if shard_span(k.shape[2], mesh, wkv, 2)[1] == k.shape[2] \
+            and n < q.shape[2]:
+        g = q.shape[2] // k.shape[2]
+        if not ((lo % g == 0 and n % g == 0) or lo // g == (lo + n - 1) // g):
+            return _sdpa_sharded(*(redistribute(t, [
+                Replicate() if p == heads else p for p in wq])
+                for t in (q, k, v)), bias)
+        kv = slice(lo // g, (lo + n - 1) // g + 1)
+    ins = [(q, wq), (k, wkv), (v, wkv)]
+    per_slot = bias.dim() == 5 and bias.shape[0] == q.shape[0] > 1
+    if per_slot or isinstance(bias, DTensor):
+        ins.append((bias, tuple(p if p == Shard(0) and per_slot
+                                else Replicate() for p in wq)))
+    return local_region(
+        lambda lq, lk, lv, lb=bias: _sdpa(lq, lk[:, :, kv], lv[:, :, kv], lb),
+        ins, wq, (*q.shape[:3], v.shape[3]))
 
 
 #: opt_attn q-chunking: cap live logits at (tq/chunks x tk) per chunk.
@@ -113,15 +203,22 @@ def prefill_route(q, k, *, window, causal, kv_override,
     none and its training path runs the jnp attention.  Otherwise, under
     ``impl="auto"``, ``"kernel"`` for CUDA bf16 causal self-attention with
     Tq = Tk, no window, a head dim the kernel is built for, and a shape
-    where some config of the ``flash_attention_h100`` space fits.
-    Decided before anything runs; once it says ``"kernel"``, a failing
-    launch raises."""
+    where some config of the ``flash_attention_h100`` space fits.  DTensor
+    q, k and v take the kernel only where all three have the same
+    placements and those shard batch or heads alone (no sequence, head
+    dim or pending sum): the kernel then runs on each rank's local shards,
+    and the shape checked is theirs.  Decided before anything runs; once it
+    says ``"kernel"``, a failing launch raises."""
     if impl not in IMPLS:
         raise ValueError(f"attention_impl must be one of {IMPLS}, not "
                          f"{impl!r}")
     if torch.is_grad_enabled() and any(
             getattr(t, "requires_grad", False) for t in (q, k, v)):
         return "plain"
+    local = _local_shards(q, k, v)
+    if local is None:
+        return "plain"
+    q, k = local[0], local[1]
     b, tq, hq, d = q.shape
     tk, hkv = k.shape[1], k.shape[2]
     if impl == "plain" or q.device.type != "cuda" \
@@ -134,6 +231,23 @@ def prefill_route(q, k, *, window, causal, kv_override,
                  flash_ops.SEMANTIC) is None:
         return "plain"
     return "kernel"
+
+
+def _local_shards(q, k, v):
+    """``(q, k, v)`` as the flash kernel would take them: the tensors
+    themselves, or for DTensors their local shards where all three share
+    placements that shard dims 0 (batch) and 2 (heads) alone, else
+    None."""
+    ts = [t for t in (q, k, v) if t is not None]
+    dt = [isinstance(t, DTensor) for t in ts]
+    if not any(dt):
+        return q, k, v
+    if not all(dt) or len({tuple(t.placements) for t in ts}) != 1 or not all(
+            isinstance(p, Replicate) or (isinstance(p, Shard)
+                                         and p.dim in (0, 2))
+            for p in q.placements):
+        return None
+    return tuple(t.to_local() if t is not None else None for t in (q, k, v))
 
 
 def admitted_config(q, k, v, config: dict | None) -> dict | None:
@@ -153,7 +267,13 @@ def _flash(q, k, v, config):
     """Causal attention of (B,T,H,D) q over (B,T,Hkv,D) k and v by the
     flash kernel, one launch a sequence, under ``config`` where the op
     admits it at this shape, else (and with none) the config the op
-    resolves."""
+    resolves.  DTensors (as :func:`prefill_route` admits them) run on
+    their local shards, and the output is a DTensor with q's
+    placements."""
+    if isinstance(q, DTensor):
+        pl = q.placements
+        return local_region(lambda *qkv: _flash(*qkv, config),
+                            [(q, pl), (k, pl), (v, pl)], pl, q.shape)
     out = torch.empty_like(q)
     for i in range(q.shape[0]):
         qi, ki, vi = (t[i].transpose(0, 1).contiguous() for t in (q, k, v))
@@ -176,10 +296,10 @@ def gqa_forward(p, x, *, positions, window=None, causal=True, qk_norm=False,
     serves q heads with h // g_eff == j, and j // r is the original head).
     ``impl`` and ``kernel_config``: the route (:func:`prefill_route`) and
     the config offered to the flash kernel."""
-    q = torch.einsum("btd,dhk->bthk", x, p["wq"])
+    q = einsum("btd,dhk->bthk", x, p["wq"])
     src = kv_override if kv_override is not None else x
-    k = torch.einsum("btd,dhk->bthk", src, p["wk"])
-    v = torch.einsum("btd,dhk->bthk", src, p["wv"])
+    k = einsum("btd,dhk->bthk", src, p["wk"])
+    v = einsum("btd,dhk->bthk", src, p["wv"])
     if qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
@@ -191,6 +311,7 @@ def gqa_forward(p, x, *, positions, window=None, causal=True, qk_norm=False,
     if kv_repeat > 1:
         k = torch.repeat_interleave(k, kv_repeat, dim=2)
         v = torch.repeat_interleave(v, kv_repeat, dim=2)
+    q, k, v, mode = _constrain_qkv(q, k, v, opt=opt)
     if prefill_route(q, k, window=window, causal=causal,
                      kv_override=kv_override, impl=impl, v=v) == "kernel":
         out = _flash(q, k, v, kernel_config)
@@ -202,7 +323,13 @@ def gqa_forward(p, x, *, positions, window=None, causal=True, qk_norm=False,
             bias = _mask_bias(q.shape[1], k.shape[1], 0, window, causal,
                               q.device)
             out = _sdpa(q, k, v, bias)
-    out = torch.einsum("bthk,hkd->btd", out, p["wo"])
+    if mode == "heads":
+        out = constrain(out, ("pod", "data"), None, "model", None)
+    elif mode == "seq":
+        out = constrain(out, ("pod", "data"), "model", None, None)
+    out = einsum("bthk,hkd->btd", out, p["wo"])
+    if opt:
+        out = constrain(out, ("pod", "data"), None, None)
     cache = {"k": k, "v": v} if make_cache else None
     return out, cache
 
@@ -246,15 +373,16 @@ def gqa_decode(p, x, cache, *, position, insert_at=None, qk_norm=False,
     ``scatter`` (opt_scatter_cache): update the cache row in place by
     indexing instead of the one-hot blend, which reads and rewrites the
     whole cache every token.  ``kv_repeat``: the cache stores replicated
-    kv heads (see gqa_forward).  ``opt`` changes nothing on one device.
+    kv heads (see gqa_forward), so it shards cleanly over TP.  ``opt``
+    pins the cache and the output (:func:`constrain`).
     """
     b = x.shape[0]
     pos_b = _positions(position, b, x.device)
     ins_b = pos_b if insert_at is None else \
         _positions(insert_at, b, x.device)
-    q = torch.einsum("btd,dhk->bthk", x, p["wq"])
-    k_new = torch.einsum("btd,dhk->bthk", x, p["wk"])
-    v_new = torch.einsum("btd,dhk->bthk", x, p["wv"])
+    q = einsum("btd,dhk->bthk", x, p["wq"])
+    k_new = einsum("btd,dhk->bthk", x, p["wk"])
+    v_new = einsum("btd,dhk->bthk", x, p["wv"])
     if qk_norm:
         q = rms_norm(q, p["q_norm"])
         k_new = rms_norm(k_new, p["k_norm"])
@@ -264,6 +392,14 @@ def gqa_decode(p, x, cache, *, position, insert_at=None, qk_norm=False,
     if kv_repeat > 1:
         k_new = torch.repeat_interleave(k_new, kv_repeat, dim=2)
         v_new = torch.repeat_interleave(v_new, kv_repeat, dim=2)
+    if opt:
+        tp = _tp_size()
+        hkv = k_new.shape[2]
+        spec = (("pod", "data"), None, "model", None) \
+            if (tp > 1 and hkv % tp == 0) \
+            else (("pod", "data"), "model", None, None)
+        cache = {"k": constrain(cache["k"], *spec),
+                 "v": constrain(cache["v"], *spec)}
     write = _scatter_row if scatter else _insert_row
     k = write(cache["k"], k_new, ins_b)
     v = write(cache["v"], v_new, ins_b)
@@ -273,7 +409,9 @@ def gqa_decode(p, x, cache, *, position, insert_at=None, qk_norm=False,
         .masked_fill(cols > pos_b[:, None], NEG_INF)
     bias = bias[:, None, None, None, :]          # (B,1,1,1,Tk) per-slot
     out = _sdpa(q, k, v, bias)
-    out = torch.einsum("bthk,hkd->btd", out, p["wo"])
+    out = einsum("bthk,hkd->btd", out, p["wo"])
+    if opt:
+        out = constrain(out, ("pod", "data"), None, None)
     return out, {"k": k, "v": v}
 
 
@@ -285,15 +423,19 @@ def make_mla(d_model, n_heads, *, kv_lora=512, q_lora=1536, nope_dim=128,
     v_dim = v_dim if v_dim is not None else nope_dim
     s = d_model ** -0.5
     p = Params()
-    p.add("w_dq", (d_model, q_lora), s)
-    p.add("w_uq", (q_lora, n_heads, nope_dim + rope_dim), q_lora ** -0.5)
-    p.add("w_dkv", (d_model, kv_lora), s)
-    p.add("w_kpe", (d_model, rope_dim), s)
-    p.add("w_uk", (kv_lora, n_heads, nope_dim), kv_lora ** -0.5)
-    p.add("w_uv", (kv_lora, n_heads, v_dim), kv_lora ** -0.5)
-    p.add("wo", (n_heads, v_dim, d_model), (n_heads * v_dim) ** -0.5)
-    p.add("q_ln", (q_lora,), "ones", torch.float32)
-    p.add("kv_ln", (kv_lora,), "ones", torch.float32)
+    p.add("w_dq", (d_model, q_lora), s, axes=("embed", "q_lora"))
+    p.add("w_uq", (q_lora, n_heads, nope_dim + rope_dim), q_lora ** -0.5,
+          axes=("q_lora", "heads", "head_dim"))
+    p.add("w_dkv", (d_model, kv_lora), s, axes=("embed", "kv_lora"))
+    p.add("w_kpe", (d_model, rope_dim), s, axes=("embed", "head_dim"))
+    p.add("w_uk", (kv_lora, n_heads, nope_dim), kv_lora ** -0.5,
+          axes=("kv_lora", "heads", "head_dim"))
+    p.add("w_uv", (kv_lora, n_heads, v_dim), kv_lora ** -0.5,
+          axes=("kv_lora", "heads", "head_dim"))
+    p.add("wo", (n_heads, v_dim, d_model), (n_heads * v_dim) ** -0.5,
+          axes=("heads", "head_dim", "embed"))
+    p.add("q_ln", (q_lora,), "ones", torch.float32, ("q_lora",))
+    p.add("kv_ln", (kv_lora,), "ones", torch.float32, ("kv_lora",))
     return p
 
 
@@ -301,16 +443,16 @@ def mla_forward(p, x, *, positions, rope_theta=10_000.0, make_cache=True):
     """Training/prefill path: materialize per-head K/V from the latent
     (plain attention: the head dims nope + rope and v differ)."""
     nope = p["w_uk"].shape[2]
-    cq = rms_norm(torch.einsum("btd,dq->btq", x, p["w_dq"]), p["q_ln"])
-    q = torch.einsum("btq,qhk->bthk", cq, p["w_uq"])
+    cq = rms_norm(einsum("btd,dq->btq", x, p["w_dq"]), p["q_ln"])
+    q = einsum("btq,qhk->bthk", cq, p["w_uq"])
     q_nope, q_pe = q[..., :nope], q[..., nope:]
     q_pe = apply_rope(q_pe, positions, rope_theta)
 
-    ckv = rms_norm(torch.einsum("btd,dc->btc", x, p["w_dkv"]), p["kv_ln"])
-    k_pe = apply_rope(torch.einsum("btd,dr->btr", x, p["w_kpe"])[:, :, None, :],
+    ckv = rms_norm(einsum("btd,dc->btc", x, p["w_dkv"]), p["kv_ln"])
+    k_pe = apply_rope(einsum("btd,dr->btr", x, p["w_kpe"])[:, :, None, :],
                       positions, rope_theta)               # (B,T,1,R)
-    k_nope = torch.einsum("btc,chk->bthk", ckv, p["w_uk"])
-    v = torch.einsum("btc,chk->bthk", ckv, p["w_uv"])
+    k_nope = einsum("btc,chk->bthk", ckv, p["w_uk"])
+    v = einsum("btc,chk->bthk", ckv, p["w_uv"])
 
     h = q.shape[2]
     k_full = torch.cat(
@@ -318,7 +460,7 @@ def mla_forward(p, x, *, positions, rope_theta=10_000.0, make_cache=True):
     q_full = torch.cat([q_nope, q_pe], dim=-1)
     bias = _mask_bias(x.shape[1], x.shape[1], 0, None, True, x.device)
     out = _sdpa(q_full, k_full, v, bias)
-    out = torch.einsum("bthk,hkd->btd", out, p["wo"])
+    out = einsum("bthk,hkd->btd", out, p["wo"])
     cache = {"ckv": ckv, "k_pe": k_pe[:, :, 0, :]} if make_cache else None
     return out, cache
 
@@ -331,30 +473,30 @@ def mla_decode(p, x, cache, *, position, rope_theta=10_000.0, scatter=False):
     scale = (nope + p["w_kpe"].shape[1]) ** -0.5
     b = x.shape[0]
     pos_b = _positions(position, b, x.device)
-    cq = rms_norm(torch.einsum("btd,dq->btq", x, p["w_dq"]), p["q_ln"])
-    q = torch.einsum("btq,qhk->bthk", cq, p["w_uq"])
+    cq = rms_norm(einsum("btd,dq->btq", x, p["w_dq"]), p["q_ln"])
+    q = einsum("btq,qhk->bthk", cq, p["w_uq"])
     q_nope, q_pe = q[..., :nope], q[..., nope:]
     q_pe = apply_rope(q_pe, pos_b[:, None], rope_theta)
 
-    ckv_new = rms_norm(torch.einsum("btd,dc->btc", x, p["w_dkv"]),
+    ckv_new = rms_norm(einsum("btd,dc->btc", x, p["w_dkv"]),
                        p["kv_ln"])
-    kpe_new = apply_rope(torch.einsum("btd,dr->btr", x, p["w_kpe"])
+    kpe_new = apply_rope(einsum("btd,dr->btr", x, p["w_kpe"])
                          [:, :, None, :], pos_b[:, None], rope_theta)[:, :, 0, :]
     write = _scatter_row if scatter else _insert_row
     ckv = write(cache["ckv"], ckv_new, pos_b)
     k_pe = write(cache["k_pe"], kpe_new, pos_b)
 
     # absorb W_uk into q: q_lat (B,1,H,C); scores over latent directly
-    q_lat = torch.einsum("bthk,chk->bthc", q_nope, p["w_uk"])
-    s_lat = torch.einsum("bthc,bTc->bhtT", q_lat.float(), ckv.float())
-    s_pe = torch.einsum("bthr,bTr->bhtT", q_pe.float(), k_pe.float())
+    q_lat = einsum("bthk,chk->bthc", q_nope, p["w_uk"])
+    s_lat = einsum("bthc,bTc->bhtT", q_lat.float(), ckv.float())
+    s_pe = einsum("bthr,bTr->bhtT", q_pe.float(), k_pe.float())
     tk = ckv.shape[1]
     cols = torch.arange(tk, device=x.device)[None, :]
     bias = torch.zeros((b, tk), dtype=torch.float32, device=x.device) \
         .masked_fill(cols > pos_b[:, None], NEG_INF)
     bias = bias[:, None, None, :]                 # (B,1,1,Tk) for bhtT
     w = torch.softmax((s_lat + s_pe) * scale + bias, dim=-1)
-    o_lat = torch.einsum("bhtT,bTc->bthc", w.to(ckv.dtype), ckv)
-    out = torch.einsum("bthc,chk->bthk", o_lat, p["w_uv"])
-    out = torch.einsum("bthk,hkd->btd", out, p["wo"])
+    o_lat = einsum("bhtT,bTc->bthc", w.to(ckv.dtype), ckv)
+    out = einsum("bthc,chk->bthk", o_lat, p["w_uv"])
+    out = einsum("bthk,hkd->btd", out, p["wo"])
     return out, {"ckv": ckv, "k_pe": k_pe}

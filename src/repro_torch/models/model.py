@@ -17,12 +17,15 @@ from typing import Any
 import numpy as np
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve
+from ..distributed.sharding import (as_dtensor, constrain, local_region,
+                                    shard_span)
 from .attention import IMPLS
-from .layers import (Params, embed, init_params, make_embedding, norm_param,
-                     rms_norm, unembed)
+from .layers import (Params, einsum, embed, init_params, make_embedding,
+                     norm_param, rms_norm, unembed)
 from .rglru import CONV_WIDTH
 from .rwkv6 import HEAD_DIM as RWKV_HEAD_DIM
 from .transformer import (BlockSpec, ModelConfig, _block_decode,
@@ -64,7 +67,8 @@ class Model(Params):
                                          for _ in range(cfg.n_enc_layers))
             norm_param(self, "enc_norm", cfg.d_model)
         if cfg.frontend == "vision":
-            self.add("patch_proj", (cfg.d_model, cfg.d_model), "eye")
+            self.add("patch_proj", (cfg.d_model, cfg.d_model), "eye",
+                     axes=("embed", "embed2"))
 
     # ---------------------------------------------------------------- #
     # weights
@@ -91,6 +95,16 @@ class Model(Params):
         twin = copy.copy(self)
         twin.attention_impl = attention_impl
         return twin
+
+    def param_axes(self) -> dict[str, tuple]:
+        """Each parameter's logical axes by its ``state_dict`` name: the
+        JAX package's ``model.axes`` through :mod:`.convert`'s layout (a
+        layer's, the JAX stacked leaf's without its leading
+        ``"layers"``)."""
+        return {f"{prefix}.{name}" if prefix else name: axes
+                for prefix, node in self.named_modules()
+                if isinstance(node, Params)
+                for name, axes in node.axes.items()}
 
     @property
     def device(self) -> torch.device:
@@ -146,7 +160,7 @@ class Model(Params):
         tokens = self._tensor(batch["tokens"], torch.int64)
         x = embed(self["embedding"], tokens).to(torch.bfloat16)
         if cfg.frontend == "vision" and "patches" in batch:
-            patches = torch.einsum(
+            patches = einsum(
                 "bpd,de->bpe", self._tensor(batch["patches"])
                 .to(torch.bfloat16), self["patch_proj"])
             x = torch.cat([patches, x], dim=1)
@@ -163,6 +177,7 @@ class Model(Params):
         if cfg.n_enc_layers:
             enc_out = self._encode(batch["frames"])
         x = self._embed_inputs(batch)
+        x = constrain(x, ("pod", "data"), None, None)
         x, aux, caches = self._stack_forward(x, enc_out=enc_out,
                                              make_cache=make_cache,
                                              kernel_config=kernel_config)
@@ -172,6 +187,9 @@ class Model(Params):
         if last_only:
             x = x[:, -1:]
         logits = unembed(self["embedding"], x)
+        # keep the vocab axis model-sharded: the (B,S,V) tensor dominates
+        # activation memory at 150k-class vocabularies
+        logits = constrain(logits, ("pod", "data"), None, "model")
         return logits, aux, (caches, enc_out)
 
     @torch.no_grad()
@@ -191,8 +209,11 @@ class Model(Params):
         labels = self._tensor(batch["labels"], torch.int64)
         mask = (labels >= 0).float()
         labels = torch.clamp(labels, min=0)
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+        if isinstance(logits, DTensor):
+            logz, gold = _logz_and_gold(logits, labels)
+        else:
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, labels[..., None])[..., 0]
         nll = (logz - gold) * mask
         denom = torch.clamp(mask.sum(), min=1.0)
         loss = nll.sum() / denom
@@ -255,6 +276,41 @@ class Model(Params):
         x = rms_norm(x, self["final_norm"], cfg.norm_eps)
         logits = unembed(self["embedding"], x)[:, 0]
         return logits, new
+
+
+def _logz_and_gold(logits, labels):
+    """``logsumexp`` over the vocab and each label's logit of DTensor
+    ``logits`` (B, T, V), on each rank's local shards (DTensor's own
+    strategies gather the whole (B, T, V) for the backward pass): a
+    vocab-sharded mesh dim gives each rank its rows' max, sum of
+    exponentials and held label logits, reduced across ranks as pending
+    max and sums on (B, T); batch- and sequence-sharded dims keep their
+    shards."""
+    mesh = logits.device_mesh
+    labels = as_dtensor(labels, mesh)
+    want, lab, red, mx = [], [], [], []
+    for p in logits.placements:
+        if p in (Shard(0), Shard(1)):
+            want.append(p), lab.append(p), red.append(p), mx.append(p)
+        elif p == Shard(2):
+            want.append(p), lab.append(Replicate())
+            red.append(Partial()), mx.append(Partial("max"))
+        else:
+            r = Replicate()
+            want.append(r), lab.append(r), red.append(r), mx.append(r)
+    lo, n = shard_span(logits.shape[2], mesh, want, 2)
+    m = local_region(lambda lg: lg.detach().amax(-1), [(logits, want)], mx,
+                     labels.shape)
+
+    def sums(lg, lm, lk):
+        held = (lk >= lo) & (lk < lo + n)
+        g = torch.gather(lg, -1, (lk - lo).clamp(0, n - 1)[..., None])[..., 0]
+        return torch.exp(lg - lm[..., None]).sum(-1), g * held.to(g.dtype)
+
+    se, gold = local_region(
+        sums, [(logits, want), (m, m.placements), (labels, lab)],
+        [red, red], [labels.shape, labels.shape])
+    return m + torch.log(se), gold
 
 
 def build_model(cfg: ModelConfig, attention_impl: str = "auto") -> Model:

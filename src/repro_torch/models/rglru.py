@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .layers import Params, gelu
+from .layers import Params, einsum, gelu
 
 C_CONST = 8.0
 CONV_WIDTH = 4
@@ -27,13 +27,13 @@ def make_rglru(d_model, width=None) -> Params:
     w = width or d_model
     s = d_model ** -0.5
     p = Params()
-    p.add("w_x", (d_model, w), s)          # input branch
-    p.add("w_gate", (d_model, w), s)       # output gate branch
-    p.add("conv", (CONV_WIDTH, w), 0.3)
-    p.add("w_a", (w, w), w ** -0.5)
-    p.add("lam", (w,), 0.5, torch.float32)
-    p.add("w_i", (w, w), w ** -0.5)
-    p.add("w_out", (w, d_model), w ** -0.5)
+    p.add("w_x", (d_model, w), s, axes=("embed", "ff"))     # input branch
+    p.add("w_gate", (d_model, w), s, axes=("embed", "ff"))  # output gate
+    p.add("conv", (CONV_WIDTH, w), 0.3, axes=(None, "ff"))
+    p.add("w_a", (w, w), w ** -0.5, axes=("ff", "ff"))
+    p.add("lam", (w,), 0.5, torch.float32, ("ff",))
+    p.add("w_i", (w, w), w ** -0.5, axes=("ff", "ff"))
+    p.add("w_out", (w, d_model), w ** -0.5, axes=("ff", "embed"))
     return p
 
 
@@ -51,11 +51,11 @@ def _conv1d(x, kernel, hist=None):
 
 def _gates(p, u):
     log_a = (-C_CONST * F.softplus(p["lam"])
-             * torch.sigmoid(torch.einsum(
+             * torch.sigmoid(einsum(
                  "btw,wv->btv", u, p["w_a"]).float()))
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12))
-    i_gate = torch.sigmoid(torch.einsum(
+    i_gate = torch.sigmoid(einsum(
         "btw,wv->btv", u, p["w_i"]).float())
     return a, beta, i_gate
 
@@ -72,8 +72,8 @@ def _scan_chunk(h, a, drive):
 
 def rglru_forward(p, x, *, state=None, make_cache=False):
     b, t, d = x.shape
-    u0 = torch.einsum("btd,dw->btw", x, p["w_x"])
-    gate = torch.einsum("btd,dw->btw", x, p["w_gate"])
+    u0 = einsum("btd,dw->btw", x, p["w_x"])
+    gate = einsum("btd,dw->btw", x, p["w_gate"])
     h = state[0] if state is not None else \
         torch.zeros((b, u0.shape[2]), dtype=torch.float32, device=x.device)
     hist = state[1] if state is not None else None
@@ -89,7 +89,7 @@ def rglru_forward(p, x, *, state=None, make_cache=False):
         hs.append(hc)
     y = torch.cat(hs, dim=1).to(x.dtype)
     y = y * gelu(gate.float()).to(x.dtype)
-    out = torch.einsum("btw,wd->btd", y, p["w_out"])
+    out = einsum("btw,wd->btd", y, p["w_out"])
     return out, ((h, hist_new) if make_cache else None)
 
 

@@ -15,8 +15,10 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from .layers import Params, rms_norm
+from ..distributed.sharding import local_region
+from .layers import Params, einsum, rms_norm
 
 HEAD_DIM = 64
 SCAN_CHUNK = 256
@@ -26,15 +28,16 @@ def make_rwkv6(d_model) -> Params:
     h = d_model // HEAD_DIM
     s = d_model ** -0.5
     p = Params()
+    flat = ("embed", "heads_flat")
     for name in ("wr", "wk", "wv"):
-        p.add(name, (d_model, d_model), s)
-    p.add("ww", (d_model, d_model), s * 0.1)
-    p.add("wg", (d_model, d_model), s)
-    p.add("wo", (d_model, d_model), s)
-    p.add("w_bias", (d_model,), 0.5, torch.float32)
-    p.add("u", (h, HEAD_DIM), 0.3, torch.float32)
-    p.add("shift_mix", (5, d_model), 0.2, torch.float32)
-    p.add("ln_out", (d_model,), "ones", torch.float32)
+        p.add(name, (d_model, d_model), s, axes=flat)
+    p.add("ww", (d_model, d_model), s * 0.1, axes=flat)
+    p.add("wg", (d_model, d_model), s, axes=flat)
+    p.add("wo", (d_model, d_model), s, axes=("heads_flat", "embed"))
+    p.add("w_bias", (d_model,), 0.5, torch.float32, ("heads_flat",))
+    p.add("u", (h, HEAD_DIM), 0.3, torch.float32, ("heads", "head_dim"))
+    p.add("shift_mix", (5, d_model), 0.2, torch.float32, (None, "embed"))
+    p.add("ln_out", (d_model,), "ones", torch.float32, ("embed",))
     return p
 
 
@@ -45,7 +48,7 @@ def _projections(p, x, x_prev):
     for i, w in enumerate(("wr", "wk", "wv", "ww", "wg")):
         mix = torch.sigmoid(p["shift_mix"][i]).to(x.dtype)
         xi = x * mix + x_prev * (1.0 - mix)
-        outs.append(torch.einsum("btd,de->bte", xi, p[w]))
+        outs.append(einsum("btd,de->bte", xi, p[w]))
     r, k, v, w_raw, g = outs
     # data-dependent decay in log space: log w_t = -exp(raw) (≤ 0 always)
     logw = -torch.exp(torch.clamp(w_raw.float() + p["w_bias"], -8.0, 4.0))
@@ -60,7 +63,7 @@ def _split_heads(x, h):
 def _output(p, out, g, x):
     out = rms_norm(out.to(x.dtype), p["ln_out"])
     out = out * F.silu(g.float()).to(x.dtype)
-    return torch.einsum("btd,de->bte", out, p["wo"])
+    return einsum("btd,de->bte", out, p["wo"])
 
 
 def _wkv_chunk(s, r, k, v, logw, u):
@@ -69,9 +72,47 @@ def _wkv_chunk(s, r, k, v, logw, u):
     outs = []
     for i in range(r.shape[1]):
         kv = k[:, i, :, :, None] * v[:, i, :, None, :]     # (B,H,dk,dv)
-        outs.append(torch.einsum("bhk,bhkv->bhv", r[:, i], s + u * kv))
+        outs.append(einsum("bhk,bhkv->bhv", r[:, i], s + u * kv))
         s = torch.exp(logw[:, i])[..., None] * s + kv
     return s, torch.stack(outs, dim=1)
+
+
+def _wkv(s, r, k, v, logw, u):
+    """The recurrence over all (B,T,H,d) tokens, chunk by chunk: the last
+    state and the (B,T,H,dv) outputs.  DTensors go through
+    :func:`_wkv_sharded`."""
+    if isinstance(r, DTensor):
+        return _wkv_sharded(s, r, k, v, logw, u)
+    t = r.shape[1]
+    chunk = min(SCAN_CHUNK, t)
+    while t % chunk:
+        chunk -= 1
+    outs = []
+    for c in range(0, t, chunk):
+        s, o = _wkv_chunk(s, *(a[:, c:c + chunk] for a in (r, k, v, logw)),
+                          u)
+        outs.append(o)
+    return s, torch.cat(outs, dim=1)
+
+
+def _wkv_sharded(s, r, k, v, logw, u):
+    """:func:`_wkv` on each rank's local shards: the recurrence is
+    independent across batch and heads, so a mesh dim on which r, k, v
+    and logw all shard batch (dim 0) or all shard heads (dim 2) stays so
+    (``u``, (1,H,dk,1), and the state cut to match), and the inputs are
+    replicated on any other."""
+    ins = (r, k, v, logw)
+    want, u_pl, s_pl = [], [], []
+    for ps in zip(*(a.placements for a in ins)):
+        keep = len(set(ps)) == 1 and ps[0] in (Shard(0), Shard(2))
+        want.append(ps[0] if keep else Replicate())
+        u_pl.append(Shard(1) if keep and ps[0] == Shard(2) else Replicate())
+        s_pl.append(Shard(1) if keep and ps[0] == Shard(2) else want[-1])
+    b, t, h = r.shape[:3]
+    return tuple(local_region(
+        lambda ls, lu, *local: _wkv(ls, *local, lu),
+        [(s, s_pl), (u, u_pl), *((a, want) for a in ins)],
+        [s_pl, want], [(b, h, *s.shape[2:]), (b, t, h, v.shape[3])]))
 
 
 def rwkv6_forward(p, x, *, state=None, make_cache=False):
@@ -87,15 +128,8 @@ def rwkv6_forward(p, x, *, state=None, make_cache=False):
     s = state if state is not None else \
         torch.zeros((b, h, HEAD_DIM, HEAD_DIM), dtype=torch.float32,
                     device=x.device)
-    chunk = min(SCAN_CHUNK, t)
-    while t % chunk:
-        chunk -= 1
-    outs = []
-    for c in range(0, t, chunk):
-        s, o = _wkv_chunk(s, *(a[:, c:c + chunk] for a in (r, k, v, logw)),
-                          u)
-        outs.append(o)
-    out = torch.cat(outs, dim=1).reshape(b, t, d)           # (B,T,H*dv)
+    s, out = _wkv(s, r, k, v, logw, u)
+    out = out.reshape(b, t, d)                               # (B,T,H*dv)
     out = _output(p, out, g, x)
     # decode state = (S, last token) — the token-shift mix needs x_{t-1}
     return out, ((s, x[:, -1, :]) if make_cache else None)
@@ -110,7 +144,7 @@ def rwkv6_decode(p, x, state_tuple, *, position=None):
     r, k, v = (_split_heads(a, h).float()[:, 0] for a in (r, k, v))
     lw = _split_heads(logw, h)[:, 0]
     kv = k[..., :, None] * v[..., None, :]
-    out = torch.einsum("bhk,bhkv->bhv", r, s + p["u"][None, :, :, None] * kv)
+    out = einsum("bhk,bhkv->bhv", r, s + p["u"][None, :, :, None] * kv)
     s_new = torch.exp(lw)[..., None] * s + kv
     out = _output(p, out.reshape(b, 1, d), g, x)
     return out, (s_new, x[:, 0, :])

@@ -27,6 +27,13 @@ Fault-tolerance contract:
   instead of silently training from garbage.
 * **Retention** — keep the newest ``keep`` checkpoints (always ≥1).
 
+* **Elastic restore** — leaves are stored whole: a DTensor leaf (a
+  sharded run's) is gathered on save, and only rank 0 of the world
+  writes.  ``restore`` copies into DTensor leaves each rank's own chunk,
+  or, given ``shardings`` (a tree of specs) and a ``mesh``, places a new
+  tree on that mesh: a run checkpointed on a 4x2 mesh restarts on 2x4 or
+  on one device unchanged.
+
 A tree is nested dicts, lists and tuples of tensors (or numpy arrays);
 its leaves are taken as ``jax.tree.flatten`` takes them (dict keys sorted,
 sequences in order, None holds no leaf), so a tree of the same keys lines
@@ -220,10 +227,28 @@ def _structure(tree: Any) -> str:
     return "*"
 
 
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A tensor's whole value: a DTensor's gathered (collective: every rank
+    calls it)."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _writer() -> bool:
+    """Whether this process writes (rank 0, or no process group)."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
+
+
 def _leaf_bytes(leaf) -> tuple[dict, bytes]:
     """A leaf's meta (shape, dtype name) and its bytes, C order."""
     if torch.is_tensor(leaf):
-        t = leaf.detach().to("cpu").contiguous()
+        t = _whole(leaf.detach()).to("cpu").contiguous()
         if t.dtype == torch.bfloat16:
             return ({"shape": list(t.shape), "dtype": "bfloat16"},
                     t.view(torch.uint16).numpy().tobytes())
@@ -248,16 +273,13 @@ def _leaf_tensor(payload: bytes, m: dict) -> torch.Tensor:
 # ------------------------------------------------------------------ #
 def save(root: str | Path, step: int, tree: Any, *, extra: dict | None = None,
          keep: int = 3) -> Path:
-    """Write checkpoint ``step``; returns the committed directory."""
+    """Write checkpoint ``step``; returns the committed directory.  Under
+    a process group of several ranks every rank calls it (DTensor leaves
+    are gathered), rank 0 writes, and all return once it has."""
     root = Path(root)
-    root.mkdir(parents=True, exist_ok=True)
     final = root / f"step_{step:09d}"
     if (final / "meta.msgpack").exists():
         return final                 # idempotent: step already committed
-    tmp = root / f"step_{step:09d}.tmp"
-    if tmp.exists():
-        shutil.rmtree(tmp)
-    tmp.mkdir()
 
     payload = bytearray()
     metas = []
@@ -265,6 +287,14 @@ def save(root: str | Path, step: int, tree: Any, *, extra: dict | None = None,
         meta, raw = _leaf_bytes(leaf)
         metas.append(dict(meta, offset=len(payload), nbytes=len(raw)))
         payload.extend(raw)
+    if not _writer():
+        _barrier()
+        return final
+    root.mkdir(parents=True, exist_ok=True)
+    tmp = root / f"step_{step:09d}.tmp"
+    if tmp.exists():
+        shutil.rmtree(tmp)
+    tmp.mkdir()
     blob = _compress(bytes(payload))
     (tmp / SHARD).write_bytes(blob)
     meta = {
@@ -283,6 +313,7 @@ def save(root: str | Path, step: int, tree: Any, *, extra: dict | None = None,
     os.replace(latest_tmp, root / "LATEST")
 
     _sweep(root, keep)
+    _barrier()
     return final
 
 
@@ -312,12 +343,17 @@ def latest_step(root: str | Path) -> int | None:
 
 
 @torch.no_grad()
-def restore(root: str | Path, like: Any, *,
-            step: int | None = None) -> tuple[Any, dict]:
+def restore(root: str | Path, like: Any, *, step: int | None = None,
+            shardings: Any = None, mesh=None) -> tuple[Any, dict]:
     """Load checkpoint ``step`` (default the newest) into ``like``, a tree
     of tensors of the target structure, in place: each leaf is copied
-    into ``like``'s tensor, on its device and in its dtype.  Returns
-    ``(like, extra)``."""
+    into ``like``'s tensor, on its device and in its dtype (a DTensor
+    leaf: this rank's chunk).  Returns ``(like, extra)``.  With
+    ``shardings``, a tree of specs matching ``like``, and a ``mesh``, it
+    returns instead a new tree of DTensors placed on ``mesh`` by them, in
+    ``like``'s dtypes (the elastic-reload path: restore onto a different
+    mesh); ``like`` is then only read for its structure, shapes and
+    dtypes."""
     root = Path(root)
     step = latest_step(root) if step is None else step
     if step is None:
@@ -338,6 +374,47 @@ def restore(root: str | Path, like: Any, *,
         if tuple(m["shape"]) != tuple(want.shape):
             raise ValueError(f"leaf shape {tuple(m['shape'])} != target "
                              f"{tuple(want.shape)}")
+    if shardings is not None:
+        from ..distributed.sharding import place
+        specs = iter(_flatten_specs(shardings))
+        it = iter(meta["leaves"])
+
+        def build(tree):
+            if tree is None:
+                return None
+            if isinstance(tree, dict):
+                return {k: build(tree[k]) for k in sorted(tree)}
+            if isinstance(tree, (list, tuple)):
+                return type(tree)(build(v) for v in tree)
+            whole = _leaf_tensor(payload, next(it)).to(
+                dtype=tree.dtype, device=mesh.device_type)
+            return place(whole, next(specs), mesh)
+
+        return build(like), meta.get("extra", {})
     for want, m in zip(leaves, meta["leaves"]):
-        want.copy_(_leaf_tensor(payload, m))
+        _copy_into(want, _leaf_tensor(payload, m))
     return like, meta.get("extra", {})
+
+
+def _copy_into(want: torch.Tensor, whole: torch.Tensor) -> None:
+    """Copy ``whole`` into ``want``: a DTensor takes its own chunk."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    with torch.no_grad():
+        if isinstance(want, DTensor):
+            chunk = distribute_tensor(
+                whole.to(device=want.device, dtype=want.dtype),
+                want.device_mesh, want.placements,
+                src_data_rank=None).to_local()
+            want.to_local().copy_(chunk)
+        else:
+            want.copy_(whole)
+
+
+def _flatten_specs(tree: Any) -> list:
+    """The specs of a tree of specs (tuples of axis names) in
+    :func:`_flatten`'s order: a spec is a leaf."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _flatten_specs(tree[k])]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _flatten_specs(v)]
+    return [tree]

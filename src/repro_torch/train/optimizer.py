@@ -9,7 +9,11 @@ dicts of tensors keyed like the model's ``state_dict``; ``step`` is an
 int32 scalar tensor.  :func:`apply_updates` works one tensor at a time,
 in place: no f32 copy of all grads is held at once, and every scalar
 (the norm, the clip factor, the learning rate) stays a tensor on the
-params' device, so a step never waits for the device.
+params' device, so a step never waits for the device.  Params may be
+DTensors (a sharded model): the state then mirrors their placements
+(ZeRO style), each gradient is first redistributed to its parameter's
+placements (a pending sum reduced, the FSDP reduce-scatter) and the norm
+is all-reduced.
 """
 
 from __future__ import annotations
@@ -18,6 +22,9 @@ import dataclasses
 import math
 
 import torch
+from torch.distributed.tensor import DTensor
+
+from ..distributed.sharding import redistribute
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,7 +58,7 @@ def init_opt_state(cfg: OptimizerConfig, params: dict) -> dict:
     tensors), on the params' devices; ``ef`` (the carried compression
     error) where ``cfg.compress_grads``."""
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros_like(p, dtype=torch.float32)
 
     device = next(iter(params.values())).device
     with torch.no_grad():
@@ -101,8 +108,12 @@ def apply_updates(cfg: OptimizerConfig, params: dict, opt_state: dict,
 
     def grad(k):
         g = grads.get(k)
-        return torch.zeros_like(opt_state["m"][k]) if g is None \
-            else g.to(torch.float32)
+        if g is None:
+            return torch.zeros_like(opt_state["m"][k])
+        m = opt_state["m"][k]
+        if isinstance(g, DTensor) and g.placements != m.placements:
+            g = redistribute(g, m.placements)
+        return g.to(torch.float32)
 
     if cfg.compress_grads:
         # the dequantized grads are what the norm and the update see; the

@@ -1,11 +1,16 @@
-"""The training loop: eager steps on one device + the fault-tolerance
-policy.
+"""The training loop: eager steps on one device or a mesh + the
+fault-tolerance policy.
 
-The port of ``repro.train.train_loop``.  Where the JAX loop shards its
-state over a mesh, this one runs on one device, the card unless the
-caller asks for another (``device.resolve``).  The weights come from
-``Model.init(data_cfg.seed)`` there; the state checkpointed is
-``{"params": model.state_dict(), "opt": opt_state}``, restored in place.
+The port of ``repro.train.train_loop``.  It runs on one device, the card
+unless the caller asks for another (``device.resolve``), or, given a
+``mesh`` (a ``DeviceMesh`` of that device's type), sharded over it as
+the JAX loop is: params placed by ``param_shardings`` of their logical
+axes, the optimizer state mirroring them (``launch.steps._opt_shardings``)
+and each batch by ``batch_spec``.  The weights come from
+``Model.init(data_cfg.seed)`` (whole on every rank, then each keeps its
+shard); the state checkpointed is ``{"params": model.state_dict(),
+"opt": opt_state}``, gathered whole on save and restored in place (each
+rank its shard).
 
 * **Auto-resume** — on start, the loop restores the newest committed
   checkpoint if one exists; the data pipeline needs only the step index
@@ -22,6 +27,7 @@ caller asks for another (``device.resolve``).  The weights come from
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -36,6 +42,7 @@ import torch
 from ..configs.common import SHAPES
 from ..data import DataConfig, make_pipeline
 from ..device import resolve
+from ..distributed import sharding as shd
 from ..models import ModelConfig, build_model
 from . import checkpoint as ckpt
 from .optimizer import OptimizerConfig, init_opt_state
@@ -85,13 +92,22 @@ class _Preemption:
             signal.signal(sig, h)
 
 
+def _host(v) -> float:
+    """A scalar metric on the host (a DTensor's full value)."""
+    return float(v.full_tensor() if hasattr(v, "full_tensor") else v)
+
+
 class TrainLoop:
     def __init__(self, model_cfg: ModelConfig, device=None,
                  opt_cfg: OptimizerConfig | None = None,
                  loop_cfg: TrainLoopConfig | None = None,
-                 data_cfg: DataConfig | None = None):
+                 data_cfg: DataConfig | None = None, mesh=None):
         self.model_cfg = model_cfg
         self.device = resolve(device)
+        self.mesh = mesh
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"a mesh of {mesh.device_type} devices for a "
+                             f"loop on {self.device}")
         self.opt_cfg = opt_cfg or OptimizerConfig()
         self.loop_cfg = loop_cfg or TrainLoopConfig()
         self.data_cfg = data_cfg or DataConfig(vocab=model_cfg.vocab)
@@ -102,8 +118,22 @@ class TrainLoop:
     # -------------------------------------------------------------- #
     def init_state(self) -> TrainState:
         self.model.init(self.data_cfg.seed, self.device)
+        if self.mesh is not None:
+            shd.place_params(self.model, shd.param_shardings(
+                dict(self.model.named_parameters()),
+                self.model.param_axes(), self.mesh), self.mesh)
         params = dict(self.model.named_parameters())
         return TrainState(params, init_opt_state(self.opt_cfg, params), 0)
+
+    def _batch(self, step: int) -> dict:
+        """The pipeline's batch at ``step`` on the device, placed by
+        ``batch_spec`` under a mesh."""
+        batch = {k: torch.as_tensor(v, device=self.device)
+                 for k, v in self.pipeline.batch_at(step).items()}
+        if self.mesh is None:
+            return batch
+        return {k: shd.place(v, shd.batch_spec(tuple(v.shape), self.mesh),
+                             self.mesh) for k, v in batch.items()}
 
     def _tree(self, state: TrainState) -> dict:
         return {"params": self.model.state_dict(), "opt": state.opt_state}
@@ -140,15 +170,16 @@ class TrainLoop:
         try:
             while state.step < lc.total_steps:
                 t0 = time.perf_counter()
-                batch = {k: torch.as_tensor(v, device=self.device)
-                         for k, v in self.pipeline.batch_at(state.step).items()}
-                opt_state, metrics = step_fn(self.model, state.opt_state,
-                                             batch)
+                batch = self._batch(state.step)
+                with (shd.use_mesh(self.mesh) if self.mesh is not None
+                      else contextlib.nullcontext()):
+                    opt_state, metrics = step_fn(self.model,
+                                                 state.opt_state, batch)
                 state = TrainState(state.params, opt_state, state.step + 1)
 
                 if state.step % lc.log_every == 0 or \
                         state.step == lc.total_steps:
-                    host = {k: float(v) for k, v in metrics.items()}
+                    host = {k: _host(v) for k, v in metrics.items()}
                     dt = time.perf_counter() - t0
                     host["step_time_s"] = dt
                     host["tokens_per_s"] = (
@@ -194,11 +225,11 @@ class TrainLoop:
 
 
 def train_shape_cell(model_cfg: ModelConfig, shape_name: str, device=None,
-                     **loop_kwargs) -> TrainLoop:
+                     mesh=None, **loop_kwargs) -> TrainLoop:
     """Loop wired to one assigned shape cell (launchers use this)."""
     cell = SHAPES[shape_name]
     data_cfg = DataConfig(vocab=model_cfg.vocab, seq_len=cell["seq_len"],
                           global_batch=cell["global_batch"])
     return TrainLoop(model_cfg, device,
                      loop_cfg=TrainLoopConfig(**loop_kwargs),
-                     data_cfg=data_cfg)
+                     data_cfg=data_cfg, mesh=mesh)

@@ -37,6 +37,8 @@ from repro_torch.launch import train as train_launcher  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serve import ServingEngine  # noqa: E402
 from repro_torch.train import TrainLoop  # noqa: E402
+from repro_torch.distributed.sharding import AbstractMesh  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -50,7 +52,9 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
-print(json.dumps({"modules": names, "bad": bad}))
+import torch.distributed as dist
+print(json.dumps({"modules": names, "bad": bad,
+                  "process_group": dist.is_initialized()}))
 """
 
 
@@ -128,8 +132,18 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.train",
             "repro_torch.train.checkpoint",
             "repro_torch.train.optimizer",
-            "repro_torch.train.train_loop"} <= set(got["modules"])
+            "repro_torch.train.train_loop",
+            "repro_torch.distributed",
+            "repro_torch.distributed.sharding",
+            "repro_torch.distributed.pipeline",
+            "repro_torch.launch.mesh",
+            "repro_torch.launch.dryrun",
+            "repro_torch.roofline",
+            "repro_torch.roofline.roofline",
+            "repro_torch.roofline.trace",
+            "repro_torch.roofline.probe"} <= set(got["modules"])
     assert got["bad"] == [], f"repro_torch loaded {got['bad']}"
+    assert got["process_group"] is False
 
 
 def _no_card(monkeypatch):
@@ -182,6 +196,9 @@ ENTRY_POINTS = {
     "launch.serve.main": lambda: serve_launcher.main(
         ["--arch", "qwen3-8b", "--reduced", "--requests", "1"]),
     "TrainLoop": lambda: TrainLoop(_tiny_config()),
+    "TrainLoop(mesh=…)": lambda: TrainLoop(
+        _tiny_config(), mesh=AbstractMesh((1, 1), ("data", "model"))),
+    "make_host_mesh": lambda: make_host_mesh(),
     "launch.train.main": lambda: train_launcher.main(
         ["--arch", "qwen3-8b", "--reduced", "--steps", "1"]),
 }
@@ -209,6 +226,21 @@ def test_entry_points_run_on_the_host_when_asked(monkeypatch, tmp_path):
     assert prob.arch == "cpu" and prob.name == "gemm_h100"
     x = inputs_from_numpy(_ARRAYS, device="cpu")
     assert x["a"].dtype == torch.bfloat16 and x["alpha"] == 1.0
+
+
+def test_importing_the_dry_run_starts_no_process_group():
+    """The JAX dry run sets ``XLA_FLAGS`` at import; the port's starts its
+    fake process group in ``run_cell`` only."""
+    code = ("import repro_torch.launch.dryrun, repro_torch.launch.mesh, "
+            "repro_torch.roofline.probe, repro_torch.distributed.pipeline\n"
+            "import torch.distributed as dist, os\n"
+            "print(dist.is_initialized(), 'XLA_FLAGS' in os.environ)")
+    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
+    env["PYTHONPATH"] = str(ROOT / "src")
+    r = subprocess.run([sys.executable, "-c", code], env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.split() == ["False", "False"]
 
 
 def test_measured_problem_refuses_another_arch():

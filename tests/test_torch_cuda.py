@@ -699,3 +699,96 @@ def test_lm_serving_prefill_stays_on_the_kernel_route(hopper):
     logits, _, _ = model(batch)
     assert logits.requires_grad
     assert fops.attention.launches - before == 4 and ROUTES["plain"] == 2
+
+
+#: the sharded run over the cards against the one-card run, after the same
+#: steps: the last loss (relative) and every leaf of the final checkpoint
+#: (rel-L2).  Sharded products sum in another order than one card's, so a
+#: bf16 rounding flips here and there, as between the port and the JAX
+#: package on one device (``tests/test_torch_train_step.py``'s bounds)
+CARDS_LOSS_TOL, CARDS_PARAM_TOL = 2e-3, 5e-2
+
+
+#: the 4-card run's ranks: the launcher's step, loop and data configs for
+#: ``--reduced --steps 4 --log-every 1 --global-batch 8 --seq-len 128``,
+#: on a 2x2 mesh; argv: --ckpt-dir DIR --metrics FILE
+FOUR_CARDS = """
+import sys
+from repro_torch.configs import ARCHS, reduce_config
+from repro_torch.data import DataConfig
+from repro_torch.device import resolve
+from repro_torch.launch.mesh import init_from_env, make_host_mesh
+from repro_torch.train.optimizer import OptimizerConfig
+from repro_torch.train.train_loop import TrainLoop, TrainLoopConfig
+
+device = resolve(None)
+init_from_env(device)
+mesh = make_host_mesh(2, device=device)
+cfg = reduce_config(ARCHS["qwen3-8b"])
+TrainLoop(cfg, None,
+          opt_cfg=OptimizerConfig(total_steps=4, warmup_steps=1),
+          loop_cfg=TrainLoopConfig(
+              total_steps=4, log_every=1, ckpt_every=100,
+              ckpt_dir=sys.argv[2],
+              metrics_path=sys.argv[4] if mesh.get_rank() == 0 else None),
+          data_cfg=DataConfig(vocab=cfg.vocab, seq_len=128, global_batch=8),
+          mesh=mesh).run()
+"""
+
+
+def test_a_sharded_run_over_four_cards_matches_one_card(hopper, tmp_path):
+    """The reduced qwen3-8b trained 4 steps by ``TrainLoop`` on 4 cards
+    under ``torchrun`` (NCCL, a 2x2 (data, model) mesh: FSDP x TP, built
+    here as the launcher builds its (4, 1) one) against the launcher on one
+    card with the same configs: the last loss and the final checkpoint.
+    Skipped on a host with fewer than 4 cards."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from repro_torch.configs import ARCHS, reduce_config
+    from repro_torch.models import build_model
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 cards")
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    body = tmp_path / "cards.py"
+    body.write_text(FOUR_CARDS)
+    args = ["-m", "repro_torch.launch.train", "--arch", "qwen3-8b",
+            "--reduced", "--steps", "4", "--log-every", "1",
+            "--global-batch", "8", "--seq-len", "128"]
+    runs = {"cards": [sys.executable, "-m", "torch.distributed.run",
+                      "--standalone", "--nproc-per-node", "4", str(body)],
+            "card": [sys.executable, *args]}
+    last, leaves = {}, {}
+    for name, cmd in runs.items():
+        d = tmp_path / name
+        r = subprocess.run([*cmd, "--ckpt-dir", str(d), "--metrics",
+                            str(tmp_path / f"{name}.jsonl")], env=env,
+                           capture_output=True, text=True, timeout=600)
+        assert r.returncode == 0, r.stderr[-3000:]
+        rows = (tmp_path / f"{name}.jsonl").read_text().splitlines()
+        last[name] = json.loads(rows[-1])
+        m = build_model(reduce_config(ARCHS["qwen3-8b"])).init(0, "cpu")
+        tree = {"params": m.state_dict(),
+                "opt": init_opt_state(OptimizerConfig(),
+                                      dict(m.named_parameters()))}
+        ckpt.restore(d, tree)
+        leaves[name] = ckpt._flatten(tree)
+    assert last["cards"]["step"] == last["card"]["step"] == 4
+    loss_rel = abs(last["cards"]["loss"] - last["card"]["loss"]) \
+        / abs(last["card"]["loss"])
+    worst = max(rel_l2(a.float(), b.float()) for a, b in
+                zip(leaves["cards"], leaves["card"]) if a.is_floating_point())
+    print(f"4 cards vs 1: last loss {last['cards']['loss']} vs "
+          f"{last['card']['loss']} (rel {loss_rel:.3e}), worst leaf rel_l2 "
+          f"{worst:.3e}; step {last['cards']['step_time_s']:.3f} s vs "
+          f"{last['card']['step_time_s']:.3f} s")
+    assert loss_rel <= CARDS_LOSS_TOL and worst <= CARDS_PARAM_TOL
+    assert all(torch.equal(a, b) for a, b in
+               zip(leaves["cards"], leaves["card"])
+               if not a.is_floating_point())

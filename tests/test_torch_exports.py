@@ -1,7 +1,8 @@
 """The port's package exports against the JAX package's: ``__all__`` of
 ``core``, ``core.tuners``, ``core.surrogate``, ``telemetry``, ``kernels``,
 ``orchestrator``, ``staticcheck``, ``servedb``, ``kernels.attention``,
-``models``, ``configs``, ``serve``, ``train`` and ``data`` name the same
+``models``, ``configs``, ``serve``, ``train``, ``data``, ``distributed``
+and ``roofline`` name the same
 things, apart from the named differences below, and every exported name
 resolves."""
 
@@ -33,6 +34,12 @@ DIFFERENCES = {
     "serve": (set(), set()),
     "train": (set(), set()),
     "data": (set(), set()),
+    # a spec becomes DTensor placements only in the port, and the port
+    # plans on a mesh's topology alone (JAX uses a Mesh of fake devices)
+    "distributed": (set(), {"placements", "AbstractMesh"}),
+    # the port reads a traced step, not a compiled executable
+    "roofline": ({"analyze_compiled"},
+                 {"analyze_trace", "StepTrace", "StepTracer"}),
 }
 
 
