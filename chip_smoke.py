@@ -58,11 +58,14 @@ Phases, each timed:
                65 536 points) and ``dedisp_h100`` (1536 channels, 2048 DMs,
                4096 of 12 288 samples): the same quickstart, then
                ``repro_torch.landscape.main``, which measures the whole
-               space (attention, nbody, pnpoly, conv2d) or, for the three
+               space (attention, pnpoly, conv2d) or, for the three
                sampled problems, ``--samples`` distinct random configs
-               (default 1000; hotspot at most ``HOTSPOT_SAMPLES``; dedisp's
+               (default 400; hotspot at most ``HOTSPOT_SAMPLES``; dedisp's
                space, 336 configs at its shape, is measured whole), and
-               prints the paper's five landscape results on the table.
+               prints the paper's five landscape results on the table;
+               nbody, which ``landscape.main`` measures whole, is cut in
+               depth to ``NBODY_SAMPLES`` random configs by the same
+               sampled protocol (:func:`sampled_landscape`).
                Each path's launch counts are set to 0 just before it and
                read just after; its kernel must have launched, no admitted
                config may be invalid, and the winner must hold against the
@@ -99,10 +102,10 @@ Phases, each timed:
                model over the measurement at ``DEFAULT_CONFIG``, and the
                host's microseconds a config of ``objectives_for_rows``
                over the whole space; for the three problems not measured
-               whole (GEMM, hotspot, expdist), rho on ``HOLDOUT`` configs
+               whole (GEMM, nbody, hotspot, expdist), rho on ``HOLDOUT`` configs
                measured now that no path of the run measured, drawn with
                a seed of their own from outside the fit set; then Fig 5, the portability matrix
-               over (h100, h100sxm, h100pcie), for the five problems
+               over (h100, h100sxm, h100pcie), for the four problems
                measured whole.  A config the model cannot run, or a pick
                that fails, fails the run.
 8. orchestrator — the session layer, each step a run of its entry point
@@ -269,9 +272,13 @@ ROOT = Path(__file__).resolve().parent
 SPEC_ARCH = "h100sxm"
 #: configs the hotspot path's landscape measures at most: the register
 #: design's configs cost about 0.21 s each to measure (seven calls of 8 to
-#: 70 ms), and with 1000 of them the script took 1175.8 s of its 1200 s
-#: limit (PERF.md section 5), so the path takes 400
-HOTSPOT_SAMPLES = 400
+#: 70 ms); 400 of them took 84 s, and the whole script 1085 s of its 1200 s
+#: limit, too near it (PERF.md section 5), so the path takes 150
+HOTSPOT_SAMPLES = 150
+#: configs of nbody's 960 the nbody path's table takes: each costs about
+#: 0.22 s to measure at 131 072 bodies, and the whole space took 209 s of
+#: the script's 1085 s, so the path samples a sixth of it
+NBODY_SAMPLES = 160
 #: the costmodel phase's held-out configs a problem not measured whole, and
 #: the seed of their draw: configs outside the path's trials, which the
 #: model's terms were never checked against
@@ -363,6 +370,14 @@ def cuobjdump_sass(lib) -> str:
                           text=True, timeout=600, check=True).stdout
 
 
+def sass_of(libs: dict) -> dict:
+    """``cuobjdump_sass`` of each library of ``libs`` (variant -> path),
+    the dumps run at once, one thread each."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 4) as pool:
+        return dict(zip(libs, pool.map(cuobjdump_sass, libs.values())))
+
+
 def sass_check(name: str, built, failures: list[str]) -> dict:
     """Count a tensor-core kernel's libraries' tensor-core and TMA
     instructions in their SASS (``cuobjdump``): each must issue wgmma
@@ -370,8 +385,9 @@ def sass_check(name: str, built, failures: list[str]) -> dict:
     Also print what ptxas said about wgmma or setmaxnreg in each build
     log."""
     out = {}
+    dumps = sass_of(built.libs)
     for variant, lib in built.libs.items():
-        sass = cuobjdump_sass(lib)
+        sass = dumps[variant]
         ops_ = re.findall(r"\b(HGMMA|HMMA|UTMALDG)\b", sass)
         n = {op: ops_.count(op) for op in ("HGMMA", "HMMA", "UTMALDG")}
         log = (lib.parent / f"{variant}.log").read_text()
@@ -387,11 +403,11 @@ def sass_check(name: str, built, failures: list[str]) -> dict:
     return out
 
 
-def sass_functions(lib) -> dict[str, list[str]]:
-    """Each function of a library's SASS: its mangled name and its
-    instructions' opcodes, in order."""
+def sass_functions(sass: str) -> dict[str, list[str]]:
+    """Each function of a library's SASS (``cuobjdump_sass``'s text): its
+    mangled name and its instructions' opcodes, in order."""
     out = {}
-    for fn in re.split(r"\n\s*Function : ", cuobjdump_sass(lib))[1:]:
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
         name = fn.split("\n", 1)[0].strip()
         out[name] = re.findall(
             r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", fn)
@@ -406,9 +422,10 @@ def conv2d_sass(built, failures: list[str]) -> dict:
     (LDC, ULDC), local memory (LDL, STL) and all others, and the kernel's
     whole size.  Any LDL or STL fails the run."""
     out = {}
-    for variant, lib in built.libs.items():
+    dumps = sass_of(built.libs)
+    for variant in built.libs:
         f, u, acc = variant[1:].split("_")[:3]
-        for name, ops_ in sass_functions(lib).items():
+        for name, ops_ in sass_functions(dumps[variant]).items():
             m = re.search(r"conv_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E",
                           name)
             if not m:
@@ -516,8 +533,8 @@ def model_check(paths: dict, gemm_trials, defaults: dict, default_s: dict,
     table's best, the model over the measurement at the default config
     (``defaults``, measured as ``default_s``), the host's microseconds a
     config; where the table is not the whole space, rho on
-    :func:`holdout_rows` measured now; then Fig 5 over (h100, h100sxm, h100pcie) for the five problems
-    measured whole.  What fails goes to ``failures``."""
+    :func:`holdout_rows` measured now; then Fig 5 over (h100, h100sxm,
+    h100pcie) for the four problems measured whole.  What fails goes to ``failures``."""
     import numpy as np
 
     from repro_torch import calibrate, landscape
@@ -597,7 +614,7 @@ def model_check(paths: dict, gemm_trials, defaults: dict, default_s: dict,
         except Exception as e:          # the phase's failure, reported
             failures.append(f"costmodel {name}: {e!r}")
     fig5 = {}
-    for name in ("flash_attention", "nbody", "pnpoly", "conv2d", "dedisp"):
+    for name in ("flash_attention", "pnpoly", "conv2d", "dedisp"):
         prob, path = paths[name]
         land = path["land"]
         if land["table"].protocol != "exhaustive":
@@ -611,6 +628,45 @@ def model_check(paths: dict, gemm_trials, defaults: dict, default_s: dict,
         except Exception as e:
             failures.append(f"costmodel {name} Fig 5: {e!r}")
     return {"problems": cm, "portability": fig5}
+
+
+def sampled_landscape(problem: str, samples: int) -> dict:
+    """``landscape.main``'s sampled protocol on a problem it measures whole,
+    for a path cut in depth: ``samples`` distinct random configs (seed 0)
+    of the admitted space timed on the card, published as a
+    ``sampled:N:0`` table, and the paper's five results on it (Fig 5,
+    which needs the whole table, is left out).  Returns what
+    ``landscape.main`` returns."""
+    from repro_torch import landscape
+    from repro_torch.core.results import ResultTable
+    from repro_torch.kernels import BENCHMARKS
+    prob = BENCHMARKS[problem](device="cuda")
+    n = prob.space.compiled().n_valid
+    print(f"problem: {prob.name} {prob.shape} on {prob.device} (arch "
+          f"{prob.arch}, measured)  |space| = {prob.space.cardinality:,}, "
+          f"{n} admitted; cut in depth to {samples}")
+    t0 = time.perf_counter()
+    trials = prob.sampled(samples, seed=0, arch=prob.arch)
+    seconds = time.perf_counter() - t0
+    protocol = f"sampled:{samples}:0"
+    invalid = sum(not t.ok for t in trials)
+    table = ResultTable.from_trials(prob, prob.arch, trials, protocol)
+    print(f"measured {len(trials)} configs ({protocol}) in {seconds:.2f} s; "
+          f"{invalid} invalid")
+    t0 = time.perf_counter()
+    out = landscape.analyse(prob, table, trials)
+    analyse_s = time.perf_counter() - t0
+    print(f"Fig 4  speedup of the best config over the median: "
+          f"{out['speedup']:.3f}x (best {table.best()[1] * 1e3:.4f} ms, "
+          f"{out['best_config']}); Fig 2 90 % after {out['n90']}, 99 % "
+          f"after {out['n99']}; Fig 3 {out['centrality']:.4f}; Fig 6 PFI "
+          f"(R^2 {out['r2']:.3f}) " + ", ".join(
+              f"{k} {v:.4f}" for k, v in out["pfi"].items())
+          + f"; analyses took {analyse_s:.2f} s")
+    out.update(problem=prob, table=table, trials=trials, invalid=invalid,
+               seconds=seconds, analyse_seconds=analyse_s, arch=prob.arch,
+               portability=None)
+    return out
 
 
 def orchestrator_cli(*argv) -> tuple[str, float]:
@@ -2119,8 +2175,10 @@ DIST_STEP_LAYERS, DIST_STEP_SEQ = 2, 4096
 DIST_PREFILL_LAYERS, DIST_PREFILL_SEQ = 4, 2048
 #: (d): the dry run's cell and depth: qwen3-8b's train_4k on the fake 16 x
 #: 16 mesh, cut to ``DRYRUN_LAYERS`` of 36 layers for the phase's time
-#: (its trace of all 36 layers and 16 microbatches takes minutes)
-DRYRUN_ARGS = ("--arch", "qwen3-8b", "--shape", "train_4k")
+#: (its trace of all 36 layers and 16 microbatches takes minutes), with
+#: ``--audit``: the collectives DTensor issued on its own and the calls of
+#: its Shard-to-Shard step, which must both be none
+DRYRUN_ARGS = ("--arch", "qwen3-8b", "--shape", "train_4k", "--audit")
 DRYRUN_LAYERS = 2
 
 
@@ -2146,8 +2204,11 @@ def dist_check(smi: str, counts, zero_counts, failures: list[str], *,
     ratio, and ``train``'s measured median step (phase 12's) over the
     ideal overlapped time, beside phase 12's hand-reckoned bound.  (d) The
     dry run's CLI (``python -m repro_torch.launch.dryrun``) as a
-    subprocess on its fake 16 x 16 mesh, its JSON read back.  Prints each
-    number beside ``smi``; returns what it measured."""
+    subprocess on its fake 16 x 16 mesh, its JSON read back: it fails
+    where DTensor issued any collective on its own (an all-gather, an
+    all-to-all or any other, outside the port's regions and
+    redistributions) or its Shard-to-Shard step ran.  Prints each number
+    beside ``smi`` and the torch version; returns what it measured."""
     import dataclasses
     import math
 
@@ -2313,6 +2374,10 @@ def dist_check(smi: str, counts, zero_counts, failures: list[str], *,
         check(r.returncode == 0 and len(files) == 1,
               f"(d) dry run exit {r.returncode}: {r.stderr[-2000:]}")
         dry = json.loads(files[0].read_text()) if files else {}
+    audit = dry.get("collective_audit")
+    check(not dry or (audit is not None and audit["shard_dim_alltoall"] == 0
+                      and not audit["dtensor_coll_by_op"]),
+          f"(d) collectives the port did not issue itself: {audit}")
 
     out = {
         "backend": backend, "mesh_s": mesh_s,
@@ -2357,7 +2422,11 @@ def dist_check(smi: str, counts, zero_counts, failures: list[str], *,
               f"{dry.get('microbatches')} microbatches: compute "
               f"{dry['t_compute'] * 1e3:.3f} ms, memory "
               f"{dry['t_memory'] * 1e3:.3f} ms, collective "
-              f"{dry['t_collective'] * 1e3:.3f} ms ({dry['coll_by_op']}); "
+              f"{dry['t_collective'] * 1e3:.3f} ms ({dry['coll_by_op']}, "
+              f"all-to-all {dry['coll_by_op'].get('all-to-all', 0.0)}; "
+              f"DTensor's own {(audit or {}).get('dtensor_coll_by_op')}, "
+              f"its Shard-to-Shard steps "
+              f"{(audit or {}).get('shard_dim_alltoall')}); "
               f"bound {dry['bound']}, mfu {dry['mfu']:.4f}, useful_flops "
               f"{dry['useful_flops_ratio']:.3f}, peak "
               f"{dry['peak_memory_per_chip'] / gib:.2f} GiB per chip; trace "
@@ -2371,7 +2440,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="smoke run of the port on a card")
     ap.add_argument("--budget", type=int, default=100,
                     help="evaluations per tuner in the GEMM path (>= 40)")
-    ap.add_argument("--samples", type=int, default=1000,
+    ap.add_argument("--samples", type=int, default=400,
                     help="configs landscape.main measures of each sampled "
                          "space, hotspot's at most HOTSPOT_SAMPLES (the "
                          "paper's is 10 000)")
@@ -2394,6 +2463,7 @@ def main(argv=None) -> int:
     import torch.nn.functional as F
 
     from repro_torch import _build, landscape, quickstart
+    from repro_torch.kernels import EXHAUSTIVE
     from repro_torch import device as devmod
     from repro_torch.core.problem import L2_FLUSH_BYTES, cuda_event_seconds
     from repro_torch.kernels.common import admits, fitting_config
@@ -3003,16 +3073,19 @@ def main(argv=None) -> int:
                  samples: int | None = None) -> dict:
         """One problem's path: the quickstart (random search and GA, budget
         60 each, 64 sampled configs), then ``landscape.main`` over the
-        whole space, or ``samples`` configs of a sampled one, with the counts
-        set to 0 just before and read just after; then the winner against
-        its plain version."""
+        whole space, or ``samples`` configs of a sampled one (of one it
+        measures whole, :func:`sampled_landscape`), with the counts set to
+        0 just before and read just after; then the winner against its
+        plain version."""
         zero_counts()
         t0 = time.perf_counter()
         with trace.tracing():
             res = quickstart.main(problem=problem, device="cuda", budget=60,
                                   sample=64)
-            land = landscape.main(problem=problem, device="cuda",
-                                  samples=samples)
+            land = sampled_landscape(problem, samples) \
+                if samples is not None and problem in EXHAUSTIVE \
+                else landscape.main(problem=problem, device="cuda",
+                                    samples=samples)
         path_s = time.perf_counter() - t0
         launched, issued = counts(), device_counts()
         trials = [t for r in res["runs"].values() for t in r.trials] \
@@ -3072,7 +3145,7 @@ def main(argv=None) -> int:
 
     with phase("nbody"):
         npath = run_path("nbody_h100", "nbody", nfull,
-                         lambda c: nbody_parity(c, xnf))
+                         lambda c: nbody_parity(c, xnf), NBODY_SAMPLES)
         # the winner's distance to the oracle in f32 (the quickstart's
         # check) and in f64
         x0 = nfull.make_inputs(seed=0, small=False)

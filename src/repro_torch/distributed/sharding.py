@@ -147,12 +147,153 @@ def redistribute(x, want):
     """DTensor ``x`` with placements ``want`` on its mesh (``x`` itself
     where it has them), made contiguous first: a redistribution lays its
     local result out contiguously but keeps the input's global strides,
-    which later views of a permuted product's result would trust."""
+    which later views of a permuted product's result would trust.
+
+    The steps are the port's, in a fixed order, so no torch version's
+    redistribute planning chooses them: each pending sum first, one mesh
+    dim at a time, the reduce-scatters before the all-reduces (which then
+    sum the smaller shards); then each mesh dim whose shard moves from one
+    tensor dim to another, by one all-to-all over that mesh dim where both
+    dims split evenly and no other mesh dim shards either, else by a
+    gather and a local cut; then the rest (gathers and local cuts) by
+    DTensor.  DTensor's own Shard-to-Shard step is never reached: on a CPU
+    mesh it turns into a gather of the whole group, which would count
+    differently from the all-to-all the card's mesh issues."""
     if tuple(x.placements) == tuple(want):
         return x
+    return _Redistribute.apply(x, tuple(want))
+
+
+class _Redistribute(torch.autograd.Function):
+    """:func:`redistribute`'s steps (:func:`_steps`); on the way back the
+    gradient is redistributed by the same steps to ``x``'s placements (a
+    pending sum there kept whole), never by DTensor's own planning of the
+    reverse."""
+
+    @staticmethod
+    def forward(ctx, x, want):
+        ctx.src = _reduced(x.placements)
+        return _steps(x, want)
+
+    @staticmethod
+    def backward(ctx, g):
+        return redistribute(g, ctx.src), None
+
+
+def _steps(x, want):
     if not x.is_contiguous():
         x = x.contiguous()
-    return x.redistribute(x.device_mesh, tuple(want))
+    mesh = x.device_mesh
+    for kind in (Shard, Replicate):
+        for i, w in enumerate(want):
+            if x.placements[i].is_partial() and isinstance(w, kind):
+                now = list(x.placements)
+                now[i] = w
+                x = x.redistribute(mesh, tuple(now))
+    for i, w in enumerate(want):
+        p = x.placements[i]
+        if isinstance(p, Shard) and isinstance(w, Shard) and p.dim != w.dim:
+            x = _move_shard(x, i, p.dim, w.dim)
+    if tuple(x.placements) == tuple(want):
+        return x
+    return x.redistribute(mesh, tuple(want))
+
+
+def _move_shard(x, i, a: int, b: int):
+    """DTensor ``x``, sharded on tensor dim ``a`` over mesh dim ``i``,
+    sharded on ``b`` there instead (see :func:`redistribute`)."""
+    mesh, n = x.device_mesh, x.device_mesh.shape[i]
+    new = list(x.placements)
+    new[i] = Shard(b)
+    others = [q for k, q in enumerate(x.placements) if k != i]
+    if x.shape[a] % n or x.shape[b] % n or Shard(a) in others \
+            or Shard(b) in others:
+        new[i] = Replicate()
+        x = x.redistribute(mesh, tuple(new))
+        new[i] = Shard(b)
+        return x.redistribute(mesh, tuple(new))
+    return local_region(
+        lambda t: _Collective.apply(
+            t, lambda u: _all_to_all(u, (mesh, i), a, b),
+            lambda u: _all_to_all(u, (mesh, i), b, a)),
+        [(x, x.placements)], new, x.shape)
+
+
+def _wait(t):
+    from torch.distributed._functional_collectives import \
+        AsyncCollectiveTensor
+    return t.wait() if isinstance(t, AsyncCollectiveTensor) else t
+
+
+def _all_to_all(t, group, a: int, b: int):
+    """Local ``t`` split in ``n`` along ``b``, piece ``j`` sent to rank
+    ``j`` of ``group`` (a ``(mesh, dim)`` pair), and the pieces received
+    joined along ``a`` in rank order."""
+    from torch.distributed import _functional_collectives as funcol
+    n = group[0].shape[group[1]]
+    parts = torch.stack(torch.chunk(t, n, dim=b)).contiguous()
+    got = _wait(funcol.all_to_all_single(parts, None, None, group))
+    return torch.cat(list(got.unbind(0)), dim=a)
+
+
+class _Collective(torch.autograd.Function):
+    """A collective of a local tensor inside a :func:`local_region`:
+    ``fwd`` on the way in, ``bwd`` (its transpose) on the gradient."""
+
+    @staticmethod
+    def forward(ctx, t, fwd, bwd):
+        ctx.bwd = bwd
+        return fwd(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.bwd(g.contiguous()), None, None
+
+
+def _all_reduce_local(t, mesh, dims):
+    from torch.distributed import _functional_collectives as funcol
+    for i in dims:
+        t = _wait(funcol.all_reduce(t, "sum", (mesh, i)))
+    return t
+
+
+def all_reduce(t, mesh, dims):
+    """Local ``t`` summed over mesh dims ``dims`` (an all-reduce each) on
+    every rank, inside a :func:`local_region`.  Each rank then computes on
+    the sum, so the gradient that reaches it is its own share, and the
+    backward sums those the same way."""
+    if not dims:
+        return t
+
+    def f(u):
+        return _all_reduce_local(u, mesh, dims)
+
+    return _Collective.apply(t, f, f)
+
+
+def _swap(t, mesh, i: int):
+    """Local ``t`` exchanged with the rank half the group away on mesh dim
+    ``i`` (rank ``c`` receives rank ``c + n/2 mod n``'s): one permute, an
+    all-to-all in which each rank sends to one other."""
+    from torch.distributed import _functional_collectives as funcol
+    n = mesh.shape[i]
+    partner = (mesh.get_local_rank(i) + n // 2) % n
+    splits = [0] * n
+    splits[partner] = t.numel()
+    flat = t.contiguous().reshape(-1)
+    return _wait(funcol.all_to_all_single(flat, splits, splits,
+                                          (mesh, i))).reshape(t.shape)
+
+
+def swap_halves(t, mesh, i: int):
+    """The partner shard of local ``t`` over mesh dim ``i`` (:func:`_swap`)
+    inside a :func:`local_region`; the exchange is its own inverse, so the
+    backward sends each gradient back by the same permute."""
+
+    def f(u):
+        return _swap(u, mesh, i)
+
+    return _Collective.apply(t, f, f)
 
 
 def as_dtensor(x, mesh):

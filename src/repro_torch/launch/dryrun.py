@@ -33,6 +33,11 @@ names the file ``{arch}.{shape}.{mesh}.L{N}.json``, so a cut cell never
 stands for the whole one under ``--skip-existing``;
 ``--aspect DxM`` plans a (data, model) mesh of another shape, e.g. 32x8,
 which keeps TP inside an 8-GPU NVLink node.
+``--audit`` also records, under ``collective_audit``, the collective
+bytes by opcode that DTensor's own op strategies issued in the trace
+(``dtensor_coll_by_op``) and the calls of DTensor's own Shard-to-Shard
+step (``shard_dim_alltoall``): the port issues every collective of the
+step itself, so both are empty, on any torch version.
 """
 
 import argparse
@@ -73,12 +78,13 @@ def fake_world(size: int) -> None:
 def run_cell(arch: str, shape: str, multi_pod: bool, out_dir: Path,
              overrides: dict | None = None, probe: bool = False,
              optimized: bool = False, aspect: str | None = None,
-             layers: int | None = None) -> dict:
+             layers: int | None = None, audit: bool = False) -> dict:
     import torch
     from torch.distributed.device_mesh import init_device_mesh
 
     from ..configs import ARCHS, SHAPES
     from ..roofline import analyze_trace, model_flops, roofline_report
+    from ..roofline.trace import count_shard_moves
     from .mesh import PRODUCTION, make_production_mesh
     from .steps import lower_cell, optimize_config, plan_cell
 
@@ -104,7 +110,8 @@ def run_cell(arch: str, shape: str, multi_pod: bool, out_dir: Path,
     t0 = time.perf_counter()
     plan = plan_cell(cfg, shape, mesh, **(overrides or {}))
     t_lower = time.perf_counter() - t0
-    trace = lower_cell(plan, mesh)
+    with count_shard_moves() as moves:
+        trace = lower_cell(plan, mesh)
     t_compile = trace.seconds
 
     mf = model_flops(cfg, SHAPES[shape], microbatches=plan.microbatches)
@@ -126,6 +133,10 @@ def run_cell(arch: str, shape: str, multi_pod: bool, out_dir: Path,
         "n_layers": cfg.n_layers,
         "ops": trace.ops,
     }
+    if audit:
+        out["collective_audit"] = {
+            "dtensor_coll_by_op": trace.dtensor_coll_by_op,
+            "shard_dim_alltoall": sum(moves.values())}
 
     if probe:                     # corrected roofline terms (§Roofline)
         from ..roofline.probe import corrected_report
@@ -176,6 +187,9 @@ def main(argv=None) -> None:
                     help="override single-pod mesh aspect, e.g. 32x8")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth to this many layers")
+    ap.add_argument("--audit", action="store_true",
+                    help="record the collectives DTensor issued on its "
+                         "own (collective_audit)")
     args = ap.parse_args(argv)
     out_dir = Path(args.out)
 
@@ -184,7 +198,7 @@ def main(argv=None) -> None:
             ap.error("--arch and --shape (or --all) required")
         run_cell(args.arch, args.shape, args.multi_pod, out_dir,
                  probe=args.probe, optimized=args.opt, aspect=args.aspect,
-                 layers=args.layers)
+                 layers=args.layers, audit=args.audit)
         return
 
     meshes = [False, True] if args.both_meshes else [args.multi_pod]

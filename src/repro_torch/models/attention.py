@@ -30,13 +30,13 @@ from collections import Counter
 import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from ..distributed.sharding import (axis_size, constrain, local_region,
-                                    redistribute, shard_span)
+from ..distributed.sharding import (as_dtensor, axis_size, constrain,
+                                    local_region, redistribute, shard_span)
 from ..kernels.attention import kernel as flash_kernel
 from ..kernels.attention import ops as flash_ops
 from ..kernels.attention.space import build_space as flash_space
 from ..kernels.common import config_at
-from .layers import Params, apply_rope, einsum, rms_norm
+from .layers import Params, apply_rope, einsum, einsum_shared, rms_norm
 
 NEG_INF = -1e30
 
@@ -285,6 +285,18 @@ def _flash(q, k, v, config):
     return out
 
 
+def _repeat_kv(t, r: int):
+    """``t``'s kv heads (dim 2) each repeated ``r`` times in place; a
+    DTensor on its local shards, its placements kept (a head-sharded
+    rank's heads repeat into the same rank's block)."""
+    if not isinstance(t, DTensor):
+        return torch.repeat_interleave(t, r, dim=2)
+    pl = tuple(t.placements)
+    return local_region(lambda lt: torch.repeat_interleave(lt, r, dim=2),
+                        [(t, pl)], pl,
+                        (*t.shape[:2], t.shape[2] * r, *t.shape[3:]))
+
+
 def gqa_forward(p, x, *, positions, window=None, causal=True, qk_norm=False,
                 rope_theta=10_000.0, kv_override=None, make_cache=True,
                 opt=False, kv_repeat=1, impl="auto", kernel_config=None):
@@ -296,10 +308,13 @@ def gqa_forward(p, x, *, positions, window=None, causal=True, qk_norm=False,
     serves q heads with h // g_eff == j, and j // r is the original head).
     ``impl`` and ``kernel_config``: the route (:func:`prefill_route`) and
     the config offered to the flash kernel."""
-    q = einsum("btd,dhk->bthk", x, p["wq"])
-    src = kv_override if kv_override is not None else x
-    k = einsum("btd,dhk->bthk", src, p["wk"])
-    v = einsum("btd,dhk->bthk", src, p["wv"])
+    proj = "btd,dhk->bthk"
+    if kv_override is None:
+        q, k, v = einsum_shared(x, (proj, p["wq"]), (proj, p["wk"]),
+                                (proj, p["wv"]))
+    else:
+        q = einsum(proj, x, p["wq"])
+        k, v = einsum_shared(kv_override, (proj, p["wk"]), (proj, p["wv"]))
     if qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
@@ -309,8 +324,7 @@ def gqa_forward(p, x, *, positions, window=None, causal=True, qk_norm=False,
             torch.arange(k.shape[1], device=k.device)[None]
         k = apply_rope(k, kpos, rope_theta)
     if kv_repeat > 1:
-        k = torch.repeat_interleave(k, kv_repeat, dim=2)
-        v = torch.repeat_interleave(v, kv_repeat, dim=2)
+        k, v = _repeat_kv(k, kv_repeat), _repeat_kv(v, kv_repeat)
     q, k, v, mode = _constrain_qkv(q, k, v, opt=opt)
     if prefill_route(q, k, window=window, causal=causal,
                      kv_override=kv_override, impl=impl, v=v) == "kernel":
@@ -390,8 +404,8 @@ def gqa_decode(p, x, cache, *, position, insert_at=None, qk_norm=False,
         q = apply_rope(q, pos_b[:, None], rope_theta)
         k_new = apply_rope(k_new, pos_b[:, None], rope_theta)
     if kv_repeat > 1:
-        k_new = torch.repeat_interleave(k_new, kv_repeat, dim=2)
-        v_new = torch.repeat_interleave(v_new, kv_repeat, dim=2)
+        k_new = _repeat_kv(k_new, kv_repeat)
+        v_new = _repeat_kv(v_new, kv_repeat)
     if opt:
         tp = _tp_size()
         hkv = k_new.shape[2]
@@ -439,24 +453,51 @@ def make_mla(d_model, n_heads, *, kv_lora=512, q_lora=1536, nope_dim=128,
     return p
 
 
+def _mla_down(p, x):
+    """MLA's three down-projections of ``x``: the q latent, the kv latent
+    and the shared RoPE key (one activation, :func:`einsum_shared`)."""
+    return einsum_shared(x, ("btd,dq->btq", p["w_dq"]),
+                         ("btd,dc->btc", p["w_dkv"]),
+                         ("btd,dr->btr", p["w_kpe"]))
+
+
+def _mla_keys(k_nope, k_pe):
+    """MLA's keys: each head's ``k_nope`` (B,T,H,N) beside the one shared
+    RoPE key ``k_pe`` (B,T,1,R).  DTensors on their local shards: the
+    heads keep their batch, sequence or head shards (a shard of N is
+    gathered), and ``k_pe`` is gathered over the mesh dims where the heads
+    are sharded (its gradient, a sum over the heads, reduce-scattered back
+    there): it is H times smaller than the keys it fills."""
+    if not isinstance(k_nope, DTensor) and not isinstance(k_pe, DTensor):
+        h = k_nope.shape[2]
+        return torch.cat(
+            [k_nope, k_pe.expand(*k_pe.shape[:2], h, k_pe.shape[-1])], dim=-1)
+    mesh = (k_nope if isinstance(k_nope, DTensor) else k_pe).device_mesh
+    k_nope, k_pe = as_dtensor(k_nope, mesh), as_dtensor(k_pe, mesh)
+    kw = [p if p in (Shard(0), Shard(1), Shard(2)) else Replicate()
+          for p in k_nope.placements]
+    pw = [p if p in (Shard(0), Shard(1)) else Replicate() for p in kw]
+    return local_region(
+        _mla_keys, [(k_nope, kw), (k_pe, pw)], kw,
+        (*k_nope.shape[:3], k_nope.shape[3] + k_pe.shape[3]))
+
+
 def mla_forward(p, x, *, positions, rope_theta=10_000.0, make_cache=True):
     """Training/prefill path: materialize per-head K/V from the latent
     (plain attention: the head dims nope + rope and v differ)."""
     nope = p["w_uk"].shape[2]
-    cq = rms_norm(einsum("btd,dq->btq", x, p["w_dq"]), p["q_ln"])
+    dq, dkv, kpe = _mla_down(p, x)
+    cq = rms_norm(dq, p["q_ln"])
     q = einsum("btq,qhk->bthk", cq, p["w_uq"])
     q_nope, q_pe = q[..., :nope], q[..., nope:]
     q_pe = apply_rope(q_pe, positions, rope_theta)
 
-    ckv = rms_norm(einsum("btd,dc->btc", x, p["w_dkv"]), p["kv_ln"])
-    k_pe = apply_rope(einsum("btd,dr->btr", x, p["w_kpe"])[:, :, None, :],
-                      positions, rope_theta)               # (B,T,1,R)
+    ckv = rms_norm(dkv, p["kv_ln"])
+    k_pe = apply_rope(kpe[:, :, None, :], positions, rope_theta)  # (B,T,1,R)
     k_nope = einsum("btc,chk->bthk", ckv, p["w_uk"])
     v = einsum("btc,chk->bthk", ckv, p["w_uv"])
 
-    h = q.shape[2]
-    k_full = torch.cat(
-        [k_nope, k_pe.expand(*k_pe.shape[:2], h, k_pe.shape[-1])], dim=-1)
+    k_full = _mla_keys(k_nope, k_pe)
     q_full = torch.cat([q_nope, q_pe], dim=-1)
     bias = _mask_bias(x.shape[1], x.shape[1], 0, None, True, x.device)
     out = _sdpa(q_full, k_full, v, bias)
@@ -473,15 +514,15 @@ def mla_decode(p, x, cache, *, position, rope_theta=10_000.0, scatter=False):
     scale = (nope + p["w_kpe"].shape[1]) ** -0.5
     b = x.shape[0]
     pos_b = _positions(position, b, x.device)
-    cq = rms_norm(einsum("btd,dq->btq", x, p["w_dq"]), p["q_ln"])
+    dq, dkv, kpe = _mla_down(p, x)
+    cq = rms_norm(dq, p["q_ln"])
     q = einsum("btq,qhk->bthk", cq, p["w_uq"])
     q_nope, q_pe = q[..., :nope], q[..., nope:]
     q_pe = apply_rope(q_pe, pos_b[:, None], rope_theta)
 
-    ckv_new = rms_norm(einsum("btd,dc->btc", x, p["w_dkv"]),
-                       p["kv_ln"])
-    kpe_new = apply_rope(einsum("btd,dr->btr", x, p["w_kpe"])
-                         [:, :, None, :], pos_b[:, None], rope_theta)[:, :, 0, :]
+    ckv_new = rms_norm(dkv, p["kv_ln"])
+    kpe_new = apply_rope(kpe[:, :, None, :], pos_b[:, None],
+                         rope_theta)[:, :, 0, :]
     write = _scatter_row if scatter else _insert_row
     ckv = write(cache["ckv"], ckv_new, pos_b)
     k_pe = write(cache["k_pe"], kpe_new, pos_b)

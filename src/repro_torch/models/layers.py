@@ -19,7 +19,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from ..distributed.sharding import as_dtensor, local_region, shard_span
+from ..distributed.sharding import (all_reduce, as_dtensor, local_region,
+                                    shard_span, swap_halves)
 
 PTREE_DTYPE = torch.bfloat16          # parameter storage dtype
 
@@ -110,20 +111,17 @@ def _letters(equation: str, operands) -> tuple[list[str], str]:
     return specs, out.replace("...", ell)
 
 
-def _einsum_sharded(equation: str, a, b):
-    """A two-operand einsum of DTensors on each rank's local shards, by the
-    SPMD rules, mesh dim by mesh dim: where ``a`` (the activation in the
-    models' products) shards a letter, ``b`` is made to fit it (gathered
-    where the letter is ``a``'s alone, cut to the same letter where they
-    share it); where only ``b`` shards one, ``a`` is cut to match if they
-    share it.  A letter kept in the output leaves the result sharded on
-    it; a contracted one leaves a pending sum, which the region reduces
-    (:func:`~repro_torch.distributed.sharding.local_region`).  The local
-    product is ``torch.einsum``, so no strided shard or permuted layout
-    reaches DTensor's own views."""
+def _plan(equation: str, a, b):
+    """The placements of one two-operand einsum of DTensors on their local
+    shards, by the SPMD rules, mesh dim by mesh dim: where ``a`` (the
+    activation in the models' products) shards a letter, ``b`` is made to
+    fit it (gathered where the letter is ``a``'s alone, cut to the same
+    letter where they share it); where only ``b`` shards one, ``a`` is cut
+    to match if they share it.  A letter kept in the output leaves the
+    result sharded on it; a contracted one leaves a pending sum.  Returns
+    the local equation, ``a``'s, ``b``'s and the result's placements and
+    the result's global shape."""
     (la, lb), out = _letters(equation, (a, b))
-    mesh = a.device_mesh if isinstance(a, DTensor) else b.device_mesh
-    a, b = as_dtensor(a, mesh), as_dtensor(b, mesh)
     pa, pb, po = [], [], []
     for qa, qb in zip(a.placements, b.placements):
         ca = la[qa.dim] if isinstance(qa, Shard) else None
@@ -138,15 +136,90 @@ def _einsum_sharded(equation: str, a, b):
         po.append(Replicate() if c is None else
                   Shard(out.index(c)) if c in out else Partial())
     size = {**dict(zip(la, a.shape)), **dict(zip(lb, b.shape))}
-    return local_region(
-        lambda x, y: torch.einsum(f"{la},{lb}->{out}", x, y),
-        [(a, pa), (b, pb)], po, [size[c] for c in out])
+    return f"{la},{lb}->{out}", pa, pb, po, [size[c] for c in out]
+
+
+def _einsum_sharded(equation: str, a, b):
+    """A two-operand einsum of DTensors on each rank's local shards, placed
+    by :func:`_plan`; the pending sum of a contracted letter is reduced by
+    the region (:func:`~repro_torch.distributed.sharding.local_region`).
+    The local product is ``torch.einsum``, so no strided shard or permuted
+    layout reaches DTensor's own views."""
+    mesh = a.device_mesh if isinstance(a, DTensor) else b.device_mesh
+    a, b = as_dtensor(a, mesh), as_dtensor(b, mesh)
+    eq, pa, pb, po, shape = _plan(equation, a, b)
+    return local_region(lambda x, y: torch.einsum(eq, x, y),
+                        [(a, pa), (b, pb)], po, shape)
+
+
+def einsum_shared(x, *products):
+    """``[einsum(eq, x, w) for eq, w in products]``: several products of
+    one activation ``x``.  With DTensor operands, the products whose
+    :func:`_plan` takes ``x`` under the same placements run in one local
+    region, which ``x`` enters once: the backward then sums their local
+    gradients of ``x`` before it reduces them, one all-reduce where one a
+    product would be as many.  On plain tensors it is the same
+    ``torch.einsum`` calls in the same order."""
+    ws = [w for _, w in products]
+    if not any(isinstance(t, DTensor) for t in (x, *ws)):
+        return [torch.einsum(eq, x, w) for eq, w in products]
+    mesh = next(t.device_mesh for t in (x, *ws) if isinstance(t, DTensor))
+    x = as_dtensor(x, mesh)
+    plans = [_plan(eq, x, as_dtensor(w, mesh)) for eq, w in products]
+    out = [None] * len(products)
+    groups: dict[tuple, list[int]] = {}
+    for j, plan in enumerate(plans):
+        groups.setdefault(tuple(plan[1]), []).append(j)
+    for pa, js in groups.items():
+        def fn(lx, *lws, js=js):
+            return [torch.einsum(plans[j][0], lx, lw)
+                    for j, lw in zip(js, lws)]
+        res = local_region(
+            fn, [(x, pa)] + [(as_dtensor(ws[j], mesh), plans[j][2])
+                             for j in js],
+            [plans[j][3] for j in js], [plans[j][4] for j in js])
+        for j, r in zip(js, res):
+            out[j] = r
+    return out
 
 
 def rms_norm(x, w, eps=1e-6):
+    """RMS norm over the last dim, weighted by ``w``; DTensors through
+    :func:`_rms_norm_sharded`."""
+    if isinstance(x, DTensor) or isinstance(w, DTensor):
+        return _rms_norm_sharded(x, w, eps)
     x32 = x.float()
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps) * w).to(x.dtype)
+
+
+def _rms_norm_sharded(x, w, eps):
+    """:func:`rms_norm` on each rank's local shards: ``x`` keeps its
+    placements, and ``w`` enters as the shard of the last dim that ``x``
+    holds (gathered where ``x`` holds it whole: an FSDP-sharded norm weight
+    is gathered once for the forward, and its gradient reduce-scattered
+    on the way back).  Where no mesh dim shards the last dim the local
+    ops are :func:`rms_norm`'s own; where one does, the mean is the local
+    sum of squares, (..., 1) in f32, summed over those mesh dims by one
+    all-reduce each (and its gradient so on the way back), never a gather
+    of ``x``."""
+    mesh = (x if isinstance(x, DTensor) else w).device_mesh
+    x, w = as_dtensor(x, mesh), as_dtensor(w, mesh)
+    last = Shard(x.ndim - 1)
+    xw = tuple(Replicate() if p.is_partial() else p for p in x.placements)
+    ww = [Shard(0) if p == last else Replicate() for p in xw]
+    dims = [i for i, p in enumerate(xw) if p == last]
+    d = x.shape[-1]
+
+    def fn(lx, lw):
+        if not dims:
+            return rms_norm(lx, lw, eps)
+        x32 = lx.float()
+        ss = all_reduce(torch.sum(x32 * x32, dim=-1, keepdim=True), mesh,
+                        dims)
+        return (x32 * torch.rsqrt(ss / d + eps) * lw).to(lx.dtype)
+
+    return local_region(fn, [(x, xw), (w, ww)], xw, x.shape)
 
 
 # --------------------------------------------------------------------- #
@@ -161,6 +234,8 @@ def apply_rope(x, positions, theta: float = 10_000.0):
     """``x``: (..., T, H, Dh); ``positions``: broadcastable to (..., T).
     The two halves of Dh rotate as a pair (concatenated, not
     interleaved)."""
+    if isinstance(x, DTensor):
+        return _rope_sharded(x, positions, theta)
     dh = x.shape[-1]
     freqs = rope_frequencies(dh, theta, x.device)            # (Dh/2,)
     ang = positions[..., :, None].float() * freqs            # (..., T, Dh/2)
@@ -169,6 +244,56 @@ def apply_rope(x, positions, theta: float = 10_000.0):
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def _rope_sharded(x, positions, theta):
+    """:func:`apply_rope` of DTensor ``x`` on each rank's local shards, ``x``
+    keeping its placements; ``positions`` is cut where ``x`` shards a dim
+    it spans.  Where no mesh dim shards the head dim, the local ops are
+    :func:`apply_rope`'s own.  Where one mesh dim of even size ``n`` does
+    (kv heads that the model axis does not divide), rank ``c`` holds a
+    slice of one half and rank ``c + n/2 mod n`` the slice it rotates
+    with: the two exchange their f32 shards by one permute (and the
+    gradients by the same permute back), and each computes its own half
+    of the pair, the same products as the whole.  Otherwise the head dim
+    is gathered on the way in and cut on the way out (its gradient
+    reduce-scattered)."""
+    mesh = x.device_mesh
+    xw = tuple(Replicate() if p.is_partial() else p for p in x.placements)
+    positions = as_dtensor(positions, mesh)
+    last, lead = x.ndim - 1, x.ndim - 2 - positions.ndim
+    pw = [Shard(p.dim - lead) if isinstance(p, Shard) and 0 <= p.dim - lead
+          < positions.ndim and positions.shape[p.dim - lead]
+          == x.shape[p.dim] else Replicate() for p in xw]
+    dims = [i for i, p in enumerate(xw) if p == Shard(last)]
+    dh = x.shape[-1]
+    if not dims:
+        return local_region(lambda lx, lp: apply_rope(lx, lp, theta),
+                            [(x, xw), (positions, pw)], xw, x.shape)
+    n = mesh.shape[dims[0]]
+    if len(dims) > 1 or n % 2 or dh % n:
+        gw = [Replicate() if p == Shard(last) else p for p in xw]
+        lo, w = shard_span(dh, mesh, xw, last)
+        return local_region(
+            lambda lx, lp: apply_rope(lx, lp, theta)[..., lo:lo + w],
+            [(x, gw), (positions, pw)], xw, x.shape)
+    i = dims[0]
+    w = dh // n
+    c = mesh.get_local_rank(i)
+    first = c < n // 2
+    lo = (c % (n // 2)) * w
+
+    def fn(lx, lp):
+        freqs = rope_frequencies(dh, theta, lx.device)[lo:lo + w]
+        ang = lp[..., :, None].float() * freqs
+        cos = torch.cos(ang)[..., None, :]
+        sin = torch.sin(ang)[..., None, :]
+        x32 = lx.float()
+        other = swap_halves(x32, mesh, i)
+        out = x32 * cos - other * sin if first else other * sin + x32 * cos
+        return out.to(lx.dtype)
+
+    return local_region(fn, [(x, xw), (positions, pw)], xw, x.shape)
 
 
 def gelu(x):
@@ -190,8 +315,8 @@ def make_mlp(d_model, d_ff, kind="swiglu") -> Params:
 
 def mlp(p, x, kind="swiglu"):
     if kind == "swiglu":
-        h = einsum("...d,df->...f", x, p["wi"])
-        g = einsum("...d,df->...f", x, p["wg"])
+        h, g = einsum_shared(x, ("...d,df->...f", p["wi"]),
+                             ("...d,df->...f", p["wg"]))
         h = F.silu(g.float()).to(x.dtype) * h
     elif kind == "relu2":                   # RWKV channel-mix style
         h = einsum("...d,df->...f", x, p["wi"])

@@ -214,10 +214,15 @@ class Model(Params):
         else:
             logz = torch.logsumexp(logits, dim=-1)
             gold = torch.gather(logits, -1, labels[..., None])[..., 0]
-        nll = (logz - gold) * mask
-        denom = torch.clamp(mask.sum(), min=1.0)
-        loss = nll.sum() / denom
-        zloss = cfg.z_loss_weight * ((logz * mask) ** 2).sum() / denom
+        if isinstance(logz, DTensor):
+            nll_sum, tokens, z_sum = _loss_sums(logz, gold, mask)
+        else:
+            nll = (logz - gold) * mask
+            nll_sum, tokens, z_sum = nll.sum(), mask.sum(), \
+                ((logz * mask) ** 2).sum()
+        denom = torch.clamp(tokens, min=1.0)
+        loss = nll_sum / denom
+        zloss = cfg.z_loss_weight * z_sum / denom
         total = loss + zloss + cfg.aux_loss_weight * aux
         return total, {"nll": loss, "z_loss": zloss, "aux": aux,
                        "tokens": denom}
@@ -311,6 +316,23 @@ def _logz_and_gold(logits, labels):
         sums, [(logits, want), (m, m.placements), (labels, lab)],
         [red, red], [labels.shape, labels.shape])
     return m + torch.log(se), gold
+
+
+def _loss_sums(logz, gold, mask):
+    """The sums :meth:`Model.train_loss` divides, of DTensor ``logz``,
+    ``gold`` and ``mask`` (B, T): the masked nll, the token count and the
+    masked squared ``logz``, each rank's local sums reduced over the mesh
+    dims that shard them by the region (one all-reduce of the three a
+    mesh dim)."""
+    pl = tuple(logz.placements)
+    part = [Partial() if isinstance(p, Shard) else Replicate() for p in pl]
+
+    def sums(lz, lg, lm):
+        return torch.stack([((lz - lg) * lm).sum(), lm.sum(),
+                            ((lz * lm) ** 2).sum()])
+
+    return local_region(sums, [(logz, pl), (gold, pl), (mask, pl)], part,
+                        (3,)).unbind(0)
 
 
 def build_model(cfg: ModelConfig, attention_impl: str = "auto") -> Model:

@@ -17,7 +17,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..distributed.sharding import axis_size, constrain, local_region
-from .layers import Params, einsum
+from .layers import Params, einsum, einsum_shared
 
 GROUP_SIZE = 128
 
@@ -100,10 +100,7 @@ def moe_ffn(p, x, *, top_k, capacity_factor=1.25, group_size=GROUP_SIZE,
     xg = constrain(x.reshape(g, gs, d), ("pod", "data"), None, None)
 
     logits = einsum("gsd,de->gse", xg.float(), p["router"])
-    probs = torch.softmax(logits, dim=-1)
-    gate_vals, idx = torch.topk(probs, top_k, dim=-1)       # (g, gs, k)
-    gate_vals = gate_vals / torch.clamp(
-        gate_vals.sum(-1, keepdim=True), min=1e-9)
+    gate_vals, idx, aux = _route(logits, top_k)             # (g, gs, k)
 
     cap = max(1, int(gs * top_k * capacity_factor / e))
     slots = torch.arange(cap, device=x.device)
@@ -135,13 +132,54 @@ def moe_ffn(p, x, *, top_k, capacity_factor=1.25, group_size=GROUP_SIZE,
     y = _experts(xe, combine.to(x.dtype), p["wi"], p["wg"], p["wo"])
 
     if "shared_wi" in p:
-        hs = einsum("gsd,df->gsf", xg, p["shared_wi"])
-        gsh = einsum("gsd,df->gsf", xg, p["shared_wg"])
+        hs, gsh = einsum_shared(xg, ("gsd,df->gsf", p["shared_wi"]),
+                                ("gsd,df->gsf", p["shared_wg"]))
         hs = F.silu(gsh.float()).to(x.dtype) * hs
         y = y + einsum("gsf,fd->gsd", hs, p["shared_wo"])
 
-    # load-balance auxiliary loss (Switch-style)
+    return y.reshape(b, t, d), {"aux_loss": aux}
+
+
+def _route(logits, top_k):
+    """The router's softmax over the experts of ``logits`` (g, gs, e): the
+    normalised top-k gate values and expert ids, and the load-balance
+    auxiliary loss (Switch-style).  DTensors go through
+    :func:`_route_sharded`."""
+    if isinstance(logits, DTensor):
+        return _route_sharded(logits, top_k)
+    e = logits.shape[-1]
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, idx = torch.topk(probs, top_k, dim=-1)
+    gate_vals = gate_vals / torch.clamp(
+        gate_vals.sum(-1, keepdim=True), min=1e-9)
     me = probs.mean(dim=(0, 1))                             # (e,)
     ce = F.one_hot(idx[..., 0], e).float().mean(dim=(0, 1))
-    aux = e * torch.sum(me * ce)
-    return y.reshape(b, t, d), {"aux_loss": aux}
+    return gate_vals, idx, e * torch.sum(me * ce)
+
+
+def _route_sharded(logits, top_k):
+    """:func:`_route` of DTensor ``logits`` (g, gs, e) on each
+    rank's local shards: the softmax over the experts (gathered where a
+    mesh dim shards them), the normalised top-k gate values and expert
+    ids, kept sharded as the groups and tokens are, and the aux loss from
+    the router's mean probabilities and first choices, each rank's sums
+    over its groups and tokens reduced over the mesh dims that shard them
+    (one all-reduce of the (2, e) sums a mesh dim)."""
+    g, gs, e = logits.shape
+    lw = [Replicate() if p == Shard(2) or p.is_partial() else p
+          for p in logits.placements]
+    sw = [Partial() if isinstance(p, Shard) else Replicate() for p in lw]
+
+    def route(lg):
+        probs = torch.softmax(lg, dim=-1)
+        gv, idx = torch.topk(probs, top_k, dim=-1)
+        gv = gv / torch.clamp(gv.sum(-1, keepdim=True), min=1e-9)
+        sums = torch.stack([probs.sum(dim=(0, 1)), F.one_hot(
+            idx[..., 0], e).to(probs.dtype).sum(dim=(0, 1))])
+        return [gv, idx, sums]
+
+    gate_vals, idx, sums = local_region(
+        route, [(logits, lw)], [lw, lw, sw],
+        [(g, gs, top_k), (g, gs, top_k), (2, e)])
+    me, ce = (sums / (g * gs)).unbind(0)
+    return gate_vals, idx, e * torch.sum(me * ce)

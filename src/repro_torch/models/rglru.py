@@ -15,8 +15,10 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
-from .layers import Params, einsum, gelu
+from ..distributed.sharding import local_region
+from .layers import Params, einsum, einsum_shared, gelu
 
 C_CONST = 8.0
 CONV_WIDTH = 4
@@ -49,14 +51,23 @@ def _conv1d(x, kernel, hist=None):
     return out, xp[:, -(CONV_WIDTH - 1):]
 
 
+def _softplus(lam):
+    """``F.softplus`` of the decay parameter; a DTensor on its local shards,
+    so its gradient (a pending sum over the tokens) is reduced by the
+    region as it arrives, not by DTensor's own strategy."""
+    if not isinstance(lam, DTensor):
+        return F.softplus(lam)
+    pl = tuple(lam.placements)
+    return local_region(F.softplus, [(lam, pl)], pl, lam.shape)
+
+
 def _gates(p, u):
-    log_a = (-C_CONST * F.softplus(p["lam"])
-             * torch.sigmoid(einsum(
-                 "btw,wv->btv", u, p["w_a"]).float()))
+    za, zi = einsum_shared(u, ("btw,wv->btv", p["w_a"]),
+                           ("btw,wv->btv", p["w_i"]))
+    log_a = -C_CONST * _softplus(p["lam"]) * torch.sigmoid(za.float())
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12))
-    i_gate = torch.sigmoid(einsum(
-        "btw,wv->btv", u, p["w_i"]).float())
+    i_gate = torch.sigmoid(zi.float())
     return a, beta, i_gate
 
 
@@ -72,8 +83,8 @@ def _scan_chunk(h, a, drive):
 
 def rglru_forward(p, x, *, state=None, make_cache=False):
     b, t, d = x.shape
-    u0 = einsum("btd,dw->btw", x, p["w_x"])
-    gate = einsum("btd,dw->btw", x, p["w_gate"])
+    u0, gate = einsum_shared(x, ("btd,dw->btw", p["w_x"]),
+                             ("btd,dw->btw", p["w_gate"]))
     h = state[0] if state is not None else \
         torch.zeros((b, u0.shape[2]), dtype=torch.float32, device=x.device)
     hist = state[1] if state is not None else None

@@ -17,8 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from ..distributed.sharding import local_region
-from .layers import Params, einsum, rms_norm
+from ..distributed.sharding import as_dtensor, local_region
+from .layers import Params, _plan, einsum, rms_norm
 
 HEAD_DIM = 64
 SCAN_CHUNK = 256
@@ -41,18 +41,54 @@ def make_rwkv6(d_model) -> Params:
     return p
 
 
+PROJ = ("wr", "wk", "wv", "ww", "wg")
+
+
 def _projections(p, x, x_prev):
     """Token-shifted projections.  ``x``: (B,T,D); ``x_prev``: (B,T,D) is x
-    shifted right by one (data-dependent mixing simplified to learned mix)."""
-    outs = []
-    for i, w in enumerate(("wr", "wk", "wv", "ww", "wg")):
-        mix = torch.sigmoid(p["shift_mix"][i]).to(x.dtype)
-        xi = x * mix + x_prev * (1.0 - mix)
-        outs.append(einsum("btd,de->bte", xi, p[w]))
+    shifted right by one (data-dependent mixing simplified to learned mix).
+    DTensors through :func:`_projections_sharded`."""
+    if any(isinstance(t, DTensor) for t in (x, x_prev, p["wr"])):
+        outs = _projections_sharded(p, x, x_prev)
+    else:
+        outs = []
+        for i, w in enumerate(PROJ):
+            mix = torch.sigmoid(p["shift_mix"][i]).to(x.dtype)
+            xi = x * mix + x_prev * (1.0 - mix)
+            outs.append(einsum("btd,de->bte", xi, p[w]))
     r, k, v, w_raw, g = outs
     # data-dependent decay in log space: log w_t = -exp(raw) (≤ 0 always)
     logw = -torch.exp(torch.clamp(w_raw.float() + p["w_bias"], -8.0, 4.0))
     return r, k, v, logw, g
+
+
+def _projections_sharded(p, x, x_prev):
+    """:func:`_projections` on each rank's local shards, in one local region
+    that ``x``, ``x_prev`` and the mixes enter once: the five products are
+    placed by :func:`~.layers._plan` (their weights share one spec, so one
+    placement of ``x``), the mixes are cut to the model dims ``x`` holds,
+    and the backward reduces ``x``'s and ``x_prev``'s gradients once each,
+    where five products of five mixed inputs would reduce five."""
+    ws = [p[w] for w in PROJ]
+    mesh = next(t.device_mesh for t in (x, x_prev, *ws)
+                if isinstance(t, DTensor))
+    x, x_prev = as_dtensor(x, mesh), as_dtensor(x_prev, mesh)
+    plans = [_plan("btd,de->bte", x, as_dtensor(w, mesh)) for w in ws]
+    xw = plans[0][1]
+    mw = [Shard(1) if q == Shard(2) else Replicate() for q in xw]
+
+    def fn(lx, lxp, lm, *lws):
+        outs = []
+        for i, lw in enumerate(lws):
+            mix = torch.sigmoid(lm[i]).to(lx.dtype)
+            xi = lx * mix + lxp * (1.0 - mix)
+            outs.append(torch.einsum(plans[i][0], xi, lw))
+        return outs
+
+    return local_region(
+        fn, [(x, xw), (x_prev, xw), (p["shift_mix"], mw)]
+        + [(w, plan[2]) for w, plan in zip(ws, plans)],
+        [plan[3] for plan in plans], [plan[4] for plan in plans])
 
 
 def _split_heads(x, h):

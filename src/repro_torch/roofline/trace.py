@@ -18,8 +18,14 @@ per-chip terms.  Its conventions:
   (the JAX package's ``bytes accessed`` is after XLA's fusion).
 * **Collectives** — the **result** bytes of each ``_c10d_functional``
   collective (all-gather, all-reduce, reduce-scatter, all-to-all), the
-  JAX package's convention on its HLO text; the pipeline's stage permute
-  is counted once by :func:`note_collective`.
+  JAX package's convention on its HLO text; an all-to-all in which each
+  rank sends to one other is a ``collective-permute``, and the
+  pipeline's stage permute is counted once by :func:`note_collective`.
+  Those that DTensor's own op strategies issue (where the innermost
+  frame of the port's code on the Python stack is not in its
+  distribution layer, ``repro_torch/distributed/``) are also counted
+  apart, in ``dtensor_coll_by_op``: the port issues every collective of
+  its sharded steps itself, so there it stays empty.
 * **Peak memory** — the high-water mark of live local storage: the
   step's resident arguments (parameters, optimizer state, batch) plus
   every storage an op creates, until it is freed.
@@ -35,8 +41,10 @@ has not seen made, factories included, are looked up).
 
 from __future__ import annotations
 
+import contextlib
 import contextvars
 import dataclasses
+import os
 import sys
 import time
 import weakref
@@ -71,11 +79,13 @@ _ACTIVE: contextvars.ContextVar = contextvars.ContextVar(
 @dataclasses.dataclass
 class StepTrace:
     """What one rank's step did: FLOPs, HBM bytes and collective result
-    bytes by opcode; the resident and peak bytes; ops counted and
-    skipped; the trace's seconds on the host."""
+    bytes by opcode (and those of DTensor's own op strategies among
+    them); the resident and peak bytes; ops counted and skipped; the
+    trace's seconds on the host."""
     flops: float = 0.0
     hbm_bytes: float = 0.0
     coll_by_op: dict = dataclasses.field(default_factory=dict)
+    dtensor_coll_by_op: dict = dataclasses.field(default_factory=dict)
     resident_bytes: float = 0.0
     peak_bytes: float = 0.0
     ops: int = 0
@@ -116,6 +126,52 @@ def _in_sharding_propagation() -> bool:
     return False
 
 
+_DIST = os.path.join("repro_torch", "distributed") + os.sep
+_PORT = "repro_torch" + os.sep
+
+
+def _issued_by_dtensor() -> bool:
+    """Whether the innermost frame of the port's code on the stack is
+    outside its distribution layer: a collective DTensor's op strategies
+    chose for one of the port's ops (or its backward)."""
+    f = sys._getframe(2)
+    while f is not None:
+        name = f.f_code.co_filename
+        if _PORT in name and "roofline" not in name:
+            return _DIST not in name
+        f = f.f_back
+    return True
+
+
+@contextlib.contextmanager
+def count_shard_moves():
+    """Count the calls of DTensor's own Shard-to-Shard step
+    (``shard_dim_alltoall``, which on a CPU mesh gathers the whole group)
+    while active, by the shape of the local tensor moved: yields the
+    ``collections.Counter``.  The port moves a shard itself
+    (``sharding.redistribute``), so under it the count stays 0."""
+    import collections
+    import importlib
+    seen = collections.Counter()
+    cu = importlib.import_module("torch.distributed.tensor._collective_utils")
+    orig = cu.shard_dim_alltoall
+
+    def counted(input, *args, **kwargs):
+        seen[tuple(input.shape)] += 1
+        return orig(input, *args, **kwargs)
+
+    mods = [m for name, m in list(sys.modules.items())
+            if name.startswith("torch.distributed.tensor") and
+            getattr(m, "shard_dim_alltoall", None) is orig]
+    for m in mods:
+        m.shard_dim_alltoall = counted
+    try:
+        yield seen
+    finally:
+        for m in mods:
+            m.shard_dim_alltoall = orig
+
+
 def note_collective(op: str, result: torch.Tensor) -> None:
     """Count a collective the dispatcher does not show (a point-to-point
     transfer) under ``op``, its result's bytes, in the active tracer."""
@@ -129,11 +185,13 @@ class StepTracer(TorchDispatchMode):
     conventions).  ``fake_mode``: the fake mode the step's own tensors
     belong to (None for real tensors); ``resident``: trees of the tensors
     (DTensors: their local shards) alive through the step, the base of
-    the peak."""
+    the peak; ``skip_propagation`` False counts the ops of DTensor's
+    sharding propagation as the rank's work too (a check of the skip)."""
 
-    def __init__(self, fake_mode=None, resident=()):
+    def __init__(self, fake_mode=None, resident=(), skip_propagation=True):
         super().__init__()
         self.fake_mode = fake_mode
+        self.skip_propagation = skip_propagation
         self.trace = StepTrace()
         self._live = 0
         self._seen: dict[int, int] = {}
@@ -158,9 +216,10 @@ class StepTracer(TorchDispatchMode):
     def _free(self, key: int) -> None:
         self._live -= self._seen.pop(key, 0)
 
-    def _coll(self, op: str, nbytes: float) -> None:
-        by = self.trace.coll_by_op
-        by[op] = by.get(op, 0.0) + float(nbytes)
+    def _coll(self, op: str, nbytes: float, dtensor: bool = False) -> None:
+        for by in ((self.trace.coll_by_op, self.trace.dtensor_coll_by_op)
+                   if dtensor else (self.trace.coll_by_op,)):
+            by[op] = by.get(op, 0.0) + float(nbytes)
 
     def _foreign(self, t: torch.Tensor) -> bool:
         from torch._subclasses.fake_tensor import FakeTensor
@@ -174,8 +233,9 @@ class StepTracer(TorchDispatchMode):
         """Whether an op is not this rank's work (the module's note)."""
         if any(self._foreign(t) for t in ins + outs):
             return True
-        if self.fake_mode is None or (ins and all(
-                id(t.untyped_storage()) in self._seen for t in ins)):
+        if self.fake_mode is None or not self.skip_propagation or (
+                ins and all(id(t.untyped_storage()) in self._seen
+                            for t in ins)):
             return False
         return _in_sharding_propagation()
 
@@ -206,7 +266,12 @@ class StepTracer(TorchDispatchMode):
         ns = func.namespace
         if ns in ("_c10d_functional", "c10d_functional"):
             if name in COLLECTIVES:
-                self._coll(COLLECTIVES[name], sum(_nbytes(t) for t in outs))
+                op = COLLECTIVES[name]
+                if name == "all_to_all_single" and sum(
+                        1 for n in args[2] if n) == 1:
+                    op = "collective-permute"
+                self._coll(op, sum(_nbytes(t) for t in outs),
+                           _issued_by_dtensor())
         elif ns != "c10d":        # point-to-point: note_collective counts it
             from torch.utils.flop_counter import flop_registry
             flop = flop_registry.get(func._overloadpacket)

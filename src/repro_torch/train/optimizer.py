@@ -22,9 +22,9 @@ import dataclasses
 import math
 
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Shard
 
-from ..distributed.sharding import redistribute
+from ..distributed.sharding import all_reduce, redistribute
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,10 +87,24 @@ def _compress_int8(g: torch.Tensor, ef: torch.Tensor):
 
 def global_norm(tensors) -> torch.Tensor:
     """The L2 norm of all ``tensors`` together, in f32, each squared and
-    summed on its own (one tensor's f32 copy at a time)."""
+    summed on its own (one tensor's f32 copy at a time).  A DTensor's
+    local shard is summed on its rank, its sum added to those of the
+    DTensors sharded over the same mesh dims, and each such group's sum
+    is reduced over those dims by one all-reduce (a replica is counted
+    once); the norm is a plain tensor, the same on every rank."""
     total = None
+    shards: dict = {}
     for x in tensors:
+        if isinstance(x, DTensor):
+            key = (x.device_mesh, tuple(i for i, p in enumerate(x.placements)
+                                        if isinstance(p, Shard)))
+            s = torch.sum(torch.square(x.to_local().to(torch.float32)))
+            shards[key] = s if key not in shards else shards[key] + s
+            continue
         s = torch.sum(torch.square(x.to(torch.float32)))
+        total = s if total is None else total + s
+    for (mesh, dims), s in shards.items():
+        s = all_reduce(s, mesh, dims)
         total = s if total is None else total + s
     return torch.sqrt(total)
 

@@ -17,8 +17,16 @@ storage), in a subprocess with a timeout so no group outlives the test
   JAX package needs a correction because its cost analysis counts a
   loop's body once; the tracer sees every layer, so here it is the
   identity);
-* one block of it on a 2x2 mesh: its collectives by opcode and its FLOPs
-  against a count by hand;
+* one block of it on a 2x2 mesh, and on a (2, 4) mesh whose model axis
+  does not divide its 2 kv heads (k and v then shard their head dim, as
+  qwen3-8b's 8 on the dry run's 16): its collectives by opcode and its
+  FLOPs against a count by hand, none of them issued by DTensor's own op
+  strategies and DTensor's own Shard-to-Shard step never reached (its
+  ``shard_dim_alltoall`` wrapped by ``trace.count_shard_moves``, which a
+  positive control shows counting); the FLOPs again with the tracer's
+  propagation skip off, in a process of their own;
+* the port's ``sharding.redistribute`` moving a shard by one all-to-all
+  of its own;
 * a reduced dense step (qwen3-8b, every sharded axis divisible) on a 2x2
   mesh: the per-chip product FLOPs times 4 equal the one-chip trace's.
 """
@@ -48,7 +56,7 @@ from repro_torch.roofline.probe import Terms, mb_extra  # noqa: E402
 REPO = Path(__file__).resolve().parents[1]
 
 _FAKE = """
-import json, dataclasses, torch, torch.distributed as dist
+import json, dataclasses, sys, torch, torch.distributed as dist
 from torch.testing._internal.distributed.fake_pg import FakeStore
 from torch.distributed.device_mesh import init_device_mesh
 from torch.distributed.tensor import distribute_tensor, Shard, Replicate
@@ -58,10 +66,19 @@ from repro_torch.distributed import sharding as shd
 from repro_torch.launch.steps import lower_cell, plan_cell
 from repro_torch.models import build_model
 from repro_torch.models.model import ENC_SPEC
-from repro_torch.roofline.trace import StepTracer
+from repro_torch.roofline.trace import StepTracer, count_shard_moves
 torch.set_num_threads(1)
+# "skip": every case; "noskip": the blocks alone, the tracer's propagation
+# skip off (each block is the first trace on its mesh in its process, so
+# DTensor's propagation runs cold in both)
+SKIP = sys.argv[1] == "skip"
 dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=16)
 out = {}
+
+# DTensor's own Shard-to-Shard step, wrapped to count its calls (the
+# control below shows the wrapper counts one)
+counting = count_shard_moves()          # kept: its exit would unwrap
+moves = counting.__enter__()
 
 mesh = init_device_mesh("cpu", (4, 4), mesh_dim_names=("data", "model"))
 fake = FakeTensorMode()
@@ -79,6 +96,15 @@ with fake:
     with StepTracer(fake_mode=fake, resident=[w]) as t:
         w.redistribute(mesh, [Replicate(), Replicate()])
     out["gather"] = dataclasses.asdict(t.trace)
+    s = distribute_tensor(torch.empty(64, 64), mesh, [Replicate(), Shard(0)],
+                          src_data_rank=None)
+    with StepTracer(fake_mode=fake, resident=[s]) as t:
+        moved = shd.redistribute(s, [Replicate(), Shard(1)])
+    out["move"] = dataclasses.asdict(t.trace)
+    out["move_local"] = list(moved.to_local().shape)
+    out["move_calls"] = sum(moves.values())
+    s.redistribute(mesh, [Replicate(), Shard(1)])       # DTensor's own
+    out["control_calls"] = sum(moves.values())
 
 # G layers traced whole vs 0 layers + G x one block, on a 2x2 mesh
 dist.destroy_process_group()
@@ -86,22 +112,24 @@ dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=4)
 m22 = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
 base = reduce_config(ARCHS["qwen3-8b"])
 
-def traced(cfg, fn):
+def traced(cfg, fn, mesh=m22):
     model = build_model(cfg)
     fake = FakeTensorMode()
+    moves.clear()
     with fake:
         for name, p in list(model.named_parameters()):
             shd.set_param(model, name, torch.empty(p.shape, dtype=p.dtype))
         shd.place_params(model, shd.param_shardings(
-            dict(model.named_parameters()), model.param_axes(), m22), m22)
+            dict(model.named_parameters()), model.param_axes(), mesh), mesh)
         tok = shd.place(torch.zeros((4, 32), dtype=torch.int64),
-                        ("data", None), m22)
+                        ("data", None), mesh)
         x = shd.place(torch.zeros((4, 32, cfg.d_model), dtype=torch.bfloat16),
-                      ("data", None, None), m22).requires_grad_(True)
-        t = StepTracer(fake_mode=fake, resident=[dict(model.named_parameters())])
-        with shd.use_mesh(m22), t:
+                      ("data", None, None), mesh).requires_grad_(True)
+        t = StepTracer(fake_mode=fake, resident=[dict(model.named_parameters())],
+                       skip_propagation=SKIP)
+        with shd.use_mesh(mesh), t:
             fn(model, tok, x)
-    return dataclasses.asdict(t.trace)
+    return dict(dataclasses.asdict(t.trace), moves=sum(moves.values()))
 
 def whole(model, tok, x):
     loss, _ = model.train_loss({"tokens": tok, "labels": tok})
@@ -114,30 +142,48 @@ def one_block(model, tok, x):
     (h.float().sum() + aux).backward()
 
 G = 3
-out["whole"] = traced(dataclasses.replace(base, n_layers=G), whole)
-out["none"] = traced(dataclasses.replace(base, n_layers=0), whole)
-out["one"] = traced(dataclasses.replace(base, n_layers=1), whole)
-out["two"] = traced(dataclasses.replace(base, n_layers=2), whole)
-out["block"] = traced(dataclasses.replace(base, n_layers=1), one_block)
+one = dataclasses.replace(base, n_layers=1)
+out["block"] = traced(one, one_block)
+if SKIP:
+    out["whole"] = traced(dataclasses.replace(base, n_layers=G), whole)
+    out["none"] = traced(dataclasses.replace(base, n_layers=0), whole)
+    out["one"] = traced(one, whole)
+    out["two"] = traced(dataclasses.replace(base, n_layers=2), whole)
 
-# a reduced dense step: sum over chips of per-chip FLOPs vs one chip
-plan = plan_cell(base, "train_4k", m22, microbatches=1, global_batch=8)
-out["step4"] = dataclasses.asdict(lower_cell(plan, m22))
-plan = plan_cell(base, "train_4k", shd.AbstractMesh((1, 1), ("data", "model")),
-                 microbatches=1, global_batch=8)
-out["step1"] = dataclasses.asdict(lower_cell(plan, None))
+    # a reduced dense step: sum over chips of per-chip FLOPs vs one chip
+    plan = plan_cell(base, "train_4k", m22, microbatches=1, global_batch=8)
+    out["step4"] = dataclasses.asdict(lower_cell(plan, m22))
+    plan = plan_cell(base, "train_4k",
+                     shd.AbstractMesh((1, 1), ("data", "model")),
+                     microbatches=1, global_batch=8)
+    out["step1"] = dataclasses.asdict(lower_cell(plan, None))
+
+# one block on a (2, 4) mesh: model = 4 does not divide the 2 kv heads
+dist.destroy_process_group()
+dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=8)
+m24 = init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "model"))
+out["block24"] = traced(one, one_block, m24)
 print(json.dumps(out))
 """
 
 
-@pytest.fixture(scope="module")
-def fake_pg():
+def _fake(mode: str) -> dict:
     env = dict(os.environ, PYTHONPATH=f"{REPO / 'src'}:"
                f"{os.environ.get('PYTHONPATH', '')}", OMP_NUM_THREADS="1")
-    r = subprocess.run([sys.executable, "-c", textwrap.dedent(_FAKE)],
+    r = subprocess.run([sys.executable, "-c", textwrap.dedent(_FAKE), mode],
                        capture_output=True, text=True, timeout=300, env=env)
     assert r.returncode == 0, r.stderr[-4000:]
     return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+@pytest.fixture(scope="module")
+def fake_pg():
+    return _fake("skip")
+
+
+@pytest.fixture(scope="module")
+def fake_pg_unskipped():
+    return _fake("noskip")
 
 
 def test_a_sharded_matmul_counts_exactly_global_over_chips(fake_pg):
@@ -177,6 +223,22 @@ def test_layers_traced_whole_equal_the_blocks_plus_the_rest(fake_pg):
     assert b["flops"] > 0 and w["coll_by_op"]
 
 
+def _block_count(model: int, data: int = 2):
+    """The reduced qwen3-8b's sizes and one block's per-chip FLOPs on a
+    (data, model) mesh: the seven projections on this chip's b = 2
+    sequences of T = 32 tokens and its TP shard of each weight, the scores
+    and the weighted sum on its heads, once forward and twice back."""
+    from repro_torch.configs import ARCHS, reduce_config
+    cfg = reduce_config(ARCHS["qwen3-8b"])
+    D, H, K, F = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
+    dh, b, T = D // H, 4 // data, 32
+    proj = [D * H * dh, D * K * dh, D * K * dh, H * dh * D, D * F, D * F,
+            F * D]
+    flops = 3 * (2 * b * T * sum(w // model for w in proj)
+                 + 2 * 2 * b * (H // model) * T * T * dh)
+    return D, H, K, F, dh, b, T, proj, flops
+
+
 def test_a_sharded_block_matches_its_hand_count(fake_pg):
     """One block of the reduced qwen3-8b (every sharded axis divisible),
     forward and backward on the 2x2 (data, model) mesh, against a count by
@@ -185,38 +247,116 @@ def test_a_sharded_block_matches_its_hand_count(fake_pg):
     * all-gather: each of the seven projections' TP shard gathered over
       ``data`` for the forward (FSDP: numel / model, bf16); the two layer
       norms' f32 weights over ``data`` and the q/k norms' over ``model``
-      (the dims those axes shard), twice (DTensor gathers them again for
-      the backward);
+      (the dims those axes shard), once, for the forward: the backward
+      keeps what the forward gathered;
     * all-reduce: the attention's and the MLP's output projections reduce
-      their pending sums over ``model`` (2), and the backward reduces the
-      input gradients of the q, k, v, up and gate projections (5), each
-      b x T x D in bf16;
+      their pending sums over ``model`` (2); the backward reduces the
+      input gradient of q, k and v together, their local gradients summed
+      first, and that of up and gate together (2), each b x T x D in bf16;
+      and the q/k norms' gradients over ``data`` after their
+      reduce-scatter over ``model`` (dh / model f32 each);
     * reduce-scatter: each projection's gradient to its (data, model)
-      shard, numel / 4 in bf16;
-    * FLOPs: the seven projections, the scores and the weighted sum on
-      this chip's tokens and heads, once forward and twice back.
+      shard, numel / 4 in bf16; the layer norms' gradients over ``data``
+      (D / data f32 each) and the q/k norms' over ``model`` (dh / model
+      f32 each);
+    * FLOPs: see ``_block_count``.
 
-    The collectives are the ones the local regions issue
-    (``sharding.local_region``) plus DTensor's gathers of the norms'
-    weights, so the count does not move with how a torch version
-    propagates a pending sum; and a trace that counted DTensor's
+    Every collective is one a local region issues
+    (``sharding.local_region``), none DTensor's op strategies do, and
+    DTensor's own Shard-to-Shard step is never reached, so the count does
+    not move with the torch version; and a trace that counted DTensor's
     sharding-propagation ops as the rank's work would miss the FLOPs."""
-    from repro_torch.configs import ARCHS, reduce_config
-    cfg = reduce_config(ARCHS["qwen3-8b"])
-    D, H, K, F = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
-    dh, data, model, b, T = D // H, 2, 2, 2, 32
-    bf16, f32 = 2, 4
-    proj = [D * H * dh, D * K * dh, D * K * dh, H * dh * D, D * F, D * F,
-            F * D]
+    D, H, K, F, dh, b, T, proj, flops = _block_count(2)
+    data, model, bf16, f32 = 2, 2, 2, 4
     block = fake_pg["block"]
     assert block["coll_by_op"] == {
         "all-gather": sum(w // model for w in proj) * bf16
-        + 2 * (2 * D + 2 * dh) * f32,
-        "all-reduce": (2 + 5) * b * T * D * bf16,
-        "reduce-scatter": sum(w // (data * model) for w in proj) * bf16}
-    assert block["flops"] == 3 * (2 * b * T * sum(w // model for w in proj)
-                                  + 2 * 2 * b * (H // model) * T * T * dh)
+        + (2 * D + 2 * dh) * f32,
+        "all-reduce": (2 + 2) * b * T * D * bf16 + 2 * (dh // model) * f32,
+        "reduce-scatter": sum(w // (data * model) for w in proj) * bf16
+        + 2 * (D // data) * f32 + 2 * (dh // model) * f32}
+    assert block["flops"] == flops
     assert block["skipped"] > 0
+    assert block["dtensor_coll_by_op"] == {} and block["moves"] == 0
+
+
+def test_a_block_whose_model_axis_does_not_divide_the_kv_heads(fake_pg):
+    """One block of the reduced qwen3-8b (4 heads, 2 kv heads, d_head 16)
+    on a (2, 4) (data, model) mesh: ``wk`` and ``wv`` shard their head dim
+    over ``model``, as qwen3-8b's 8 kv heads do on the dry run's 16.  Per
+    chip (b = 2 sequences of T = 32 tokens), by hand:
+
+    * all-gather: the seven projections' TP shards over ``data`` (numel /
+      model, bf16); the layer norms' weights over ``data`` (D f32 each)
+      and q's norm weight over ``model`` (dh f32; k's is sharded as k's
+      head dim is, so it enters as it is), once, for the forward; and k
+      and v, each gathered whole over ``model`` once for the attention (b
+      x T x K x dh bf16 each): its q heads read the kv head their group
+      shares.  RoPE and the qk-norm gather nothing;
+    * all-reduce: the two output projections' pending sums and the two
+      shared input gradients (q/k/v's, up/gate's), b x T x D bf16 each
+      (2 + 2); k's qk-norm, its sum of squares over the sharded head dim,
+      (b, T, K, 1) f32, forward and back (2); the q/k norms' gradients
+      over ``data`` (dh / model f32 each: q's after its reduce-scatter
+      over ``model``);
+    * reduce-scatter: each projection's gradient to its (data, model)
+      shard (numel / 8, bf16); the layer norms' gradients over ``data``
+      (D / data f32 each) and q's norm weight's over ``model`` (dh /
+      model f32); k's and v's gradients back to their head-dim shards
+      over ``model`` (b x T x K x dh / model bf16 each), the way their
+      gathers came;
+    * collective-permute: RoPE's rotate-half partner shard of k (f32, b x
+      T x K x dh / model), exchanged by one permute forward and one back;
+    * all-to-all: none (no shard moves from one dim to another);
+    * FLOPs: see ``_block_count``.
+
+    None is DTensor's own, and its Shard-to-Shard step is never reached."""
+    D, H, K, F, dh, b, T, proj, flops = _block_count(4)
+    data, model, bf16, f32 = 2, 4, 2, 4
+    kv, kv_shard = b * T * K * dh, b * T * K * (dh // model)
+    block = fake_pg["block24"]
+    assert block["coll_by_op"] == {
+        "all-gather": sum(w // model for w in proj) * bf16
+        + (2 * D + dh) * f32 + 2 * kv * bf16,
+        "all-reduce": (2 + 2) * b * T * D * bf16 + 2 * b * T * K * f32
+        + 2 * (dh // model) * f32,
+        "reduce-scatter": sum(w // (data * model) for w in proj) * bf16
+        + 2 * (D // data) * f32 + (dh // model) * f32
+        + 2 * kv_shard * bf16,
+        "collective-permute": 2 * kv_shard * f32}
+    assert block["flops"] == flops
+    assert block["dtensor_coll_by_op"] == {} and block["moves"] == 0
+
+
+@pytest.mark.parametrize("key,model", [("block", 2), ("block24", 4)])
+def test_the_propagation_skip_leaves_a_blocks_flops_to_the_hand_count(
+        fake_pg, fake_pg_unskipped, key, model):
+    """A sharded block's FLOPs equal the hand count with the tracer's
+    sharding-propagation skip on and off: every product runs in a local
+    region, so no product is left to DTensor's propagation, whose fake
+    runs would otherwise count a second time.  The skip stays for the
+    DTensor elementwise ops that remain between the regions (residual
+    adds, the gating product, casts): their propagation still runs ops,
+    which it skips (``skipped > 0``) and which, counted, add bytes and
+    ops but no FLOPs."""
+    flops = _block_count(model)[-1]
+    on, off = fake_pg[key], fake_pg_unskipped[key]
+    assert on["flops"] == off["flops"] == flops
+    assert on["skipped"] > 0 and off["skipped"] == 0
+    assert off["ops"] == on["ops"] + on["skipped"]
+    assert off["hbm_bytes"] > on["hbm_bytes"]
+    assert off["coll_by_op"] == on["coll_by_op"]
+
+
+def test_the_ports_redistribute_moves_a_shard_by_one_all_to_all(fake_pg):
+    """``sharding.redistribute`` turns a (64, 64) f32 shard on dim 0 over
+    the 4-rank model axis into one on dim 1 by one all-to-all of its own
+    (result: the 64 x 16 local shard), never by DTensor's Shard-to-Shard
+    step (which on a CPU mesh would gather the whole group); DTensor's
+    step, called directly, is what the wrapper counts."""
+    assert fake_pg["move"]["coll_by_op"] == {"all-to-all": 64 * 16 * 4}
+    assert fake_pg["move_local"] == [64, 16]
+    assert fake_pg["move_calls"] == 0 and fake_pg["control_calls"] == 1
 
 
 def test_per_chip_product_flops_sum_to_the_one_chip_trace(fake_pg):
