@@ -9,7 +9,9 @@ Phases, each timed:
 1. probe     — the card must be sm_90 (Hopper); prints ``nvidia-smi``'s name
                and power limit.
 2. build     — builds every kernel of the port from ``src/repro_torch/csrc``
-               with nvcc, all sources and variants at once, and checks that
+               with nvcc, all sources and variants at once (conv2d's, the
+               longest, go on while phase 3 holds the other kernels, and
+               its checks and parity come last there), and checks that
                no compiled tile spills, that every tile launches the
                largest block its space admits, that the GEMM and
                attention libraries' SASS issues wgmma and TMA loads and no
@@ -228,8 +230,15 @@ Phases, each timed:
                median step over the ideal overlapped time, beside phase
                12's hand-reckoned bound; (d) ``python -m
                repro_torch.launch.dryrun --arch qwen3-8b --shape train_4k
-               --layers 2`` on its fake 16 x 16 process group, its JSON
-               read back (terms, mfu, peak GiB per chip, seconds)
+               --layers 2`` on its fake 16 x 16 process group, and beside
+               it deepseek-coder-33b's ``train_4k --opt`` and
+               deepseek-v2-236b's ``train_4k`` at one layer, all three
+               ``--audit`` at once, each JSON read back (terms, all-reduce
+               bytes, mfu, peak GiB per chip, seconds; none may hold a
+               collective DTensor issued on its own); they need no card,
+               so main starts them before phase 5's nbody path, whose
+               host waits on the card, and this phase collects them
+               (``start_dry_runs``)
                (``dist_launches`` in attention's line).
 
 Prints the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
@@ -244,10 +253,12 @@ without the rest of the repository.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -273,12 +284,15 @@ SPEC_ARCH = "h100sxm"
 #: configs the hotspot path's landscape measures at most: the register
 #: design's configs cost about 0.21 s each to measure (seven calls of 8 to
 #: 70 ms); 400 of them took 84 s, and the whole script 1085 s of its 1200 s
-#: limit, too near it (PERF.md section 5), so the path takes 150
-HOTSPOT_SAMPLES = 150
+#: limit, too near it (PERF.md section 5); 150 left the script at 911 s on
+#: the slowest host seen, still past two thirds of the limit, so the path
+#: takes 64
+HOTSPOT_SAMPLES = 64
 #: configs of nbody's 960 the nbody path's table takes: each costs about
 #: 0.22 s to measure at 131 072 bodies, and the whole space took 209 s of
-#: the script's 1085 s, so the path samples a sixth of it
-NBODY_SAMPLES = 160
+#: the script's 1085 s; a sixth of it (160) still left the script at 911 s
+#: on the slowest host seen, so the path samples 64
+NBODY_SAMPLES = 64
 #: the costmodel phase's held-out configs a problem not measured whole, and
 #: the seed of their draw: configs outside the path's trials, which the
 #: model's terms were never checked against
@@ -364,7 +378,6 @@ def bound(flops: float, f32_inst: float, nbytes: float,
 
 def cuobjdump_sass(lib) -> str:
     """A library's SASS, as ``cuobjdump -sass`` prints it."""
-    import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     return subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, timeout=600, check=True).stdout
@@ -2180,6 +2193,44 @@ DIST_PREFILL_LAYERS, DIST_PREFILL_SEQ = 4, 2048
 #: its Shard-to-Shard step, which must both be none
 DRYRUN_ARGS = ("--arch", "qwen3-8b", "--shape", "train_4k", "--audit")
 DRYRUN_LAYERS = 2
+#: (d) beside it, each at one pattern's depth and audited alike:
+#: deepseek-coder-33b's train_4k under the ``--opt`` plan (56 heads on 16:
+#: attention over the sequence, in the port's own region) and
+#: deepseek-v2-236b's (MLA, and the MoE whose input gradient is reduced
+#: once a layer: its all-reduce bytes printed)
+DRYRUN_MORE = (
+    (("--arch", "deepseek-coder-33b", "--shape", "train_4k", "--opt",
+      "--audit"), 1),
+    (("--arch", "deepseek-v2-236b", "--shape", "train_4k", "--audit"), 1))
+
+
+def start_dry_runs(runs=None) -> dict:
+    """Start phase 13 (d)'s dry runs, ``runs`` ((args, layers) pairs;
+    default ``DRYRUN_ARGS`` at ``DRYRUN_LAYERS`` and ``DRYRUN_MORE``), one
+    ``python -m repro_torch.launch.dryrun`` subprocess each, all now, each
+    writing its JSON under a temporary directory; :func:`dist_check` waits
+    for them.  They run on the host's cores alone (a fake process group,
+    no device), so main starts them while the card, not the host, is
+    busy."""
+    from concurrent.futures import ThreadPoolExecutor
+    runs = runs or [(DRYRUN_ARGS, DRYRUN_LAYERS), *DRYRUN_MORE]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = tempfile.mkdtemp(prefix="chip_smoke_dryrun")
+    atexit.register(shutil.rmtree, out, True)
+
+    def dry_run(i, args, layers):
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+               "--layers", str(layers), "--out", str(Path(out) / str(i))]
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                           timeout=600)
+        return cmd, r, time.perf_counter() - t0
+
+    pool = ThreadPoolExecutor(len(runs))
+    futures = [pool.submit(dry_run, i, tuple(args), layers)
+               for i, (args, layers) in enumerate(runs)]
+    pool.shutdown(wait=False)
+    return {"futures": futures, "out": out, "started": time.perf_counter()}
 
 
 def dist_check(smi: str, counts, zero_counts, failures: list[str], *,
@@ -2189,8 +2240,7 @@ def dist_check(smi: str, counts, zero_counts, failures: list[str], *,
                prefill_layers: int = DIST_PREFILL_LAYERS,
                prefill_seq: int = DIST_PREFILL_SEQ, train: dict | None = None,
                roof_cfg=None, roof_batch: int = TRAIN_BATCH,
-               roof_micro: int = TRAIN_MICRO, dryrun_args=DRYRUN_ARGS, dryrun_layers: int = DRYRUN_LAYERS,
-               dryrun_env=None) -> dict:
+               roof_micro: int = TRAIN_MICRO, dryruns: dict) -> dict:
     """Distribution, the roofline and the dry run.  (a) and (b) as the
     constants above say, on ``cfg`` (default ``DIST_ARCH``) made on
     ``device`` from seed 0, on ``launch.mesh.make_host_mesh``'s one-rank
@@ -2203,12 +2253,13 @@ def dist_check(smi: str, counts, zero_counts, failures: list[str], *,
     (``launch.steps.lower_cell``): its three terms, bound and useful-FLOPs
     ratio, and ``train``'s measured median step (phase 12's) over the
     ideal overlapped time, beside phase 12's hand-reckoned bound.  (d) The
-    dry run's CLI (``python -m repro_torch.launch.dryrun``) as a
-    subprocess on its fake 16 x 16 mesh, its JSON read back: it fails
-    where DTensor issued any collective on its own (an all-gather, an
-    all-to-all or any other, outside the port's regions and
-    redistributions) or its Shard-to-Shard step ran.  Prints each number
-    beside ``smi`` and the torch version; returns what it measured."""
+    dry run's CLI (``python -m repro_torch.launch.dryrun``) on its fake 16
+    x 16 mesh, the runs :func:`start_dry_runs` started (``dryruns``),
+    each JSON read back: it fails where DTensor issued any collective on its own (an
+    all-gather, an all-to-all or any other, outside the port's regions
+    and redistributions) or its Shard-to-Shard step ran.  Prints each
+    number beside ``smi`` and the torch version; returns what it
+    measured."""
     import dataclasses
     import math
 
@@ -2360,24 +2411,25 @@ def dist_check(smi: str, counts, zero_counts, failures: list[str], *,
           f"(c) roofline terms {rep.t_compute}, {rep.t_memory}, "
           f"{rep.t_collective}")
 
-    # (d) the dry run's CLI on its fake 16 x 16 mesh
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun") as out:
-        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
-               *dryrun_args, "--layers", str(dryrun_layers), "--out", out]
-        env = dict(dryrun_env or os.environ,
-                   PYTHONPATH=str(ROOT / "src"))
-        t0 = time.perf_counter()
-        r = subprocess.run(cmd, capture_output=True, text=True, env=env,
-                           timeout=600)
-        dry_s = time.perf_counter() - t0
-        files = list(Path(out).glob("*.json"))
+    # (d) the dry run's CLI on its fake 16 x 16 mesh, the cells at once
+    dries = []
+    t_wait = time.perf_counter()
+    for future in dryruns["futures"]:
+        cmd, r, dry_s = future.result()
+        files = list(Path(cmd[-1]).glob("*.json"))
         check(r.returncode == 0 and len(files) == 1,
-              f"(d) dry run exit {r.returncode}: {r.stderr[-2000:]}")
+              f"(d) dry run {cmd[3:]} exit {r.returncode}: "
+              f"{r.stderr[-2000:]}")
         dry = json.loads(files[0].read_text()) if files else {}
-    audit = dry.get("collective_audit")
-    check(not dry or (audit is not None and audit["shard_dim_alltoall"] == 0
-                      and not audit["dtensor_coll_by_op"]),
-          f"(d) collectives the port did not issue itself: {audit}")
+        audit = dry.get("collective_audit")
+        check(not dry or (audit is not None
+                          and audit["shard_dim_alltoall"] == 0
+                          and not audit["dtensor_coll_by_op"]),
+              f"(d) {cmd[3:]}: collectives the port did not issue "
+              f"itself: {audit}")
+        dries.append({"cmd": cmd[1:], "seconds": dry_s, "json": dry})
+    wait_s = time.perf_counter() - t_wait
+    shutil.rmtree(dryruns["out"], ignore_errors=True)
 
     out = {
         "backend": backend, "mesh_s": mesh_s,
@@ -2390,7 +2442,9 @@ def dist_check(smi: str, counts, zero_counts, failures: list[str], *,
                     "rel_l2": prefill_err, "launches": launches_b,
                     "routes": routes_b, "seconds": prefill_s},
         "roofline": roof, "hand_bound_ms": hand, "measured_step_ms": measured,
-        "dryrun": {"cmd": cmd[1:], "seconds": dry_s, "json": dry},
+        "dryrun": dries[0], "dryrun_more": dries[1:],
+        "dryrun_wait_s": wait_s,
+        "dryrun_ahead_s": t_wait - dryruns["started"],
         "launches": launches_b.get("flash_attention", 0),
         "nvidia_smi": smi,
     }
@@ -2416,22 +2470,29 @@ def dist_check(smi: str, counts, zero_counts, failures: list[str], *,
           f"{measured} ms = {roof.get('measured_over_overlap')} x "
           f"t_total_overlap {rep.t_total_overlap * 1e3:.1f} ms; phase 12's "
           f"hand bound {hand} ms; torch {torch.__version__} ({smi})")
-    if dry:
+    for run in dries:
+        dry = run["json"]
+        if not dry:
+            continue
+        audit = dry.get("collective_audit") or {}
+        coll = dry["coll_by_op"]
         print(f"  (d) dry run {dry.get('arch')} {dry.get('shape')} "
               f"{dry.get('mesh')} at {dry.get('n_layers')} layers, "
               f"{dry.get('microbatches')} microbatches: compute "
               f"{dry['t_compute'] * 1e3:.3f} ms, memory "
               f"{dry['t_memory'] * 1e3:.3f} ms, collective "
-              f"{dry['t_collective'] * 1e3:.3f} ms ({dry['coll_by_op']}, "
-              f"all-to-all {dry['coll_by_op'].get('all-to-all', 0.0)}; "
-              f"DTensor's own {(audit or {}).get('dtensor_coll_by_op')}, "
-              f"its Shard-to-Shard steps "
-              f"{(audit or {}).get('shard_dim_alltoall')}); "
+              f"{dry['t_collective'] * 1e3:.3f} ms ({coll}; all-reduce "
+              f"{coll.get('all-reduce', 0.0) / 1e9:.9f} GB, all-to-all "
+              f"{coll.get('all-to-all', 0.0) / 1e9:.9f} GB a chip; "
+              f"DTensor's own {audit.get('dtensor_coll_by_op')}, its "
+              f"Shard-to-Shard steps {audit.get('shard_dim_alltoall')}); "
               f"bound {dry['bound']}, mfu {dry['mfu']:.4f}, useful_flops "
               f"{dry['useful_flops_ratio']:.3f}, peak "
               f"{dry['peak_memory_per_chip'] / gib:.2f} GiB per chip; trace "
-              f"{dry['compile_s']:.1f} s, {dry_s:.1f} s with the process; "
-              f"torch {dry.get('torch_version')} ({smi})")
+              f"{dry['compile_s']:.1f} s, {run['seconds']:.1f} s with the "
+              f"process; torch {dry.get('torch_version')} ({smi})")
+    print(f"  (d) the dry runs started {out['dryrun_ahead_s']:.1f} s before "
+          f"this phase's wait for them, which took {wait_s:.1f} s")
     out["seconds"] = time.perf_counter() - t_phase
     return out
 
@@ -2546,18 +2607,39 @@ def main(argv=None) -> int:
     hfull = HotspotProblem(device="cuda")
     efull = ExpdistProblem(device="cuda")
     dfull = DedispProblem(device="cuda")
-    with phase("build"):
-        built = _build.build_all({m.SOURCE: m.VARIANTS
-                                  for m, _ in KERNELS.values()})
-        build_s = max(b.seconds for b in built.values())
-        kernel.libraries()
-        fkernel.libraries()
-        nkernel.library()
-        pkernel.libraries()
+
+    def check_tiles(tiles: dict) -> None:
+        """Each kernel's compiled tiles (name -> tile -> attributes): none
+        spills, and each launches the largest block its space admits."""
+        for name, attrs in tiles.items():
+            spills = [(t, a) for t, a in attrs.items() if a["local_bytes"]]
+            regs = [a["regs"] for a in attrs.values()]
+            print(f"{name}: {len(attrs)} tiles, registers "
+                  f"{min(regs)}..{max(regs)}, spilling: {spills or 'none'}")
+            if spills:
+                failures.append(f"{name} tiles spill: {spills}")
+            # the six f32 kernels' spaces admit blocks of MAX_THREADS
+            # (hotspot's per columns a lane, conv2d's per tile)
+            most = getattr(KERNELS[name][0], "MAX_THREADS", None)
+
+            def expect(t):
+                if name == "conv2d":
+                    return int(ckernel.max_threads(t[2], t[3], t[5]))
+                return most[t[0]] if isinstance(most, dict) else most
+            short = [t for t, a in attrs.items()
+                     if most and a["max_threads"] < expect(t)]
+            if short:
+                failures.append(f"{name} tiles cannot launch {most} threads: "
+                                f"{short}")
+
+    def conv2d_built() -> tuple[float, dict]:
+        """Wait for conv2d's compile (started with the others in the build
+        phase), print the whole build's time and last compiles, check
+        conv2d's tiles and SASS as the build phase checks the others', and
+        return the build's seconds and conv2d's SASS counts by tile."""
+        built.update(conv2d_build.result())
         ckernel.libraries()
-        hkernel.library()
-        ekernel.library()
-        dkernel.library()
+        build_s = max(b.seconds for b in built.values())
         n_nvcc = sum(len(m.VARIANTS) for m, _ in KERNELS.values())
         print(f"build: {build_s:.1f} s ({n_nvcc} nvcc processes in "
               f"parallel, {len(built)} sources)")
@@ -2566,6 +2648,50 @@ def main(argv=None) -> int:
         print("  the last nvcc to finish: " + ", ".join(
             f"{name} at {t:.1f} s" for t, name in finished[:4]))
         record["build_finished_s"] = {name: t for t, name in finished}
+        record["build_s"] = build_s
+        check_tiles({"conv2d": {
+            (f, ufh, rc, cc, ufw, a, fs): ckernel.tile_attributes(
+                f, ufh, rc, cc, ufw, a, fs)
+            for f in ckernel.FILTER_SIZES
+            for ufh in sorted({ckernel.snap_unroll(u, f)
+                               for u in ckernel.UNROLL})
+            for ufw in sorted({ckernel.snap_unroll(u, f)
+                               for u in ckernel.UNROLL})
+            for rc, cc in ckernel.TILES for a in ("f32", "bf16")
+            for fs in (0, 1)}})
+        # every compiled conv2d tile's SASS: no local memory, and the tap
+        # loop's instruction counts against the shared reads it should issue
+        csass = conv2d_sass(built[ckernel.SOURCE], failures)
+        record["conv2d_sass"] = {str(k): v for k, v in csass.items()}
+        big = max(csass.items(), key=lambda kv: kv[1]["bytes"])
+        print(f"  conv2d SASS: {len(csass)} compiled tiles, "
+              f"{sum(n['local'] for n in csass.values())} LDL/STL; largest "
+              f"{big[1]['bytes']} B of code, {big[0]}")
+        return build_s, csass
+
+    with phase("build"):
+        # every variant of every source starts compiling at once; conv2d's
+        # in a thread of its own, since its filter-15 variants end 50-70 s
+        # after every other source's (PERF.md section 5): the other
+        # sources' checks and parity run meanwhile (``conv2d_built``)
+        from concurrent.futures import ThreadPoolExecutor
+        conv2d_builder = ThreadPoolExecutor(1)
+        conv2d_build = conv2d_builder.submit(
+            _build.build_all, {ckernel.SOURCE: ckernel.VARIANTS})
+        conv2d_builder.shutdown(wait=False)
+        built = _build.build_all({m.SOURCE: m.VARIANTS
+                                  for m, _ in KERNELS.values()
+                                  if m is not ckernel})
+        kernel.libraries()
+        fkernel.libraries()
+        nkernel.library()
+        pkernel.libraries()
+        hkernel.library()
+        ekernel.library()
+        dkernel.library()
+        print(f"build: the other sources ({len(built)}) built in "
+              f"{max(b.seconds for b in built.values()):.1f} s; conv2d's "
+              f"{len(ckernel.VARIANTS)} variants go on")
         tiles = {
             "gemm": {t: kernel.tile_attributes(*t) for t in sorted(
                 {(c["rhs_layout"], c["block_m"], c["block_n"], c["block_k"],
@@ -2587,15 +2713,6 @@ def main(argv=None) -> int:
                 for pre in (0, 1) for t in sorted(
                     {pkernel.points_per_thread(bp)
                      for bp in pkernel.BLOCK_POINTS})},
-            "conv2d": {(f, ufh, rc, cc, ufw, a, fs): ckernel.tile_attributes(
-                f, ufh, rc, cc, ufw, a, fs)
-                for f in ckernel.FILTER_SIZES
-                for ufh in sorted({ckernel.snap_unroll(u, f)
-                                   for u in ckernel.UNROLL})
-                for ufw in sorted({ckernel.snap_unroll(u, f)
-                                   for u in ckernel.UNROLL})
-                for rc, cc in ckernel.TILES for a in ("f32", "bf16")
-                for fs in (0, 1)},
             # every compiled tile of the three kernels of the sampled spaces
             "hotspot": {t: hkernel.tile_attributes(*t)
                         for t in hkernel.tiles()},
@@ -2605,26 +2722,7 @@ def main(argv=None) -> int:
             "dedisp": {(u, st, a): dkernel.tile_attributes(u, st, a)
                        for u, st in dkernel.tiles() for a in ("f32", "bf16")},
         }
-        for name, attrs in tiles.items():
-            spills = [(t, a) for t, a in attrs.items() if a["local_bytes"]]
-            regs = [a["regs"] for a in attrs.values()]
-            print(f"{name}: {len(attrs)} tiles, registers "
-                  f"{min(regs)}..{max(regs)}, spilling: {spills or 'none'}")
-            if spills:
-                failures.append(f"{name} tiles spill: {spills}")
-            # the six f32 kernels' spaces admit blocks of MAX_THREADS
-            # (hotspot's per columns a lane, conv2d's per tile)
-            most = getattr(KERNELS[name][0], "MAX_THREADS", None)
-
-            def expect(t):
-                if name == "conv2d":
-                    return int(ckernel.max_threads(t[2], t[3], t[5]))
-                return most[t[0]] if isinstance(most, dict) else most
-            short = [t for t, a in attrs.items()
-                     if most and a["max_threads"] < expect(t)]
-            if short:
-                failures.append(f"{name} tiles cannot launch {most} threads: "
-                                f"{short}")
+        check_tiles(tiles)
         for (d, bkv, wg), a in tiles["flash_attention"].items():
             print(f"  attention d={d} block_kv={bkv} warpgroups={wg}: "
                   f"{a['regs']} registers at entry, {a['local_bytes']} B "
@@ -2641,15 +2739,6 @@ def main(argv=None) -> int:
         record["sass"] = {
             name: sass_check(name, built[KERNELS[name][0].SOURCE], failures)
             for name in ("gemm", "flash_attention")}
-        # every compiled conv2d tile's SASS: no local memory, and the tap
-        # loop's instruction counts against the shared reads it should issue
-        csass = conv2d_sass(built[ckernel.SOURCE], failures)
-        record["conv2d_sass"] = {str(k): v for k, v in csass.items()}
-        big = max(csass.items(), key=lambda kv: kv[1]["bytes"])
-        print(f"  conv2d SASS: {len(csass)} compiled tiles, "
-              f"{sum(n['local'] for n in csass.values())} LDL/STL; largest "
-              f"{big[1]['bytes']} B of code, {big[0]}")
-        record["build_s"] = build_s
 
     def conv2d_sass_line(label: str, cfg: dict) -> None:
         """The SASS counts of ``cfg``'s tile beside the shared words a tap
@@ -2959,28 +3048,6 @@ def main(argv=None) -> int:
                                      "level_points": int(level.sum()),
                                      "reference_m1_flips": flips}
 
-        prob = Conv2dProblem(shape=Conv2dProblem.small_shape, device="cuda")
-        ccfgs = covering_configs(prob.space, 12, seed=5)
-        print(f"conv2d: {len(ccfgs)} configs at {prob.shape}")
-        xc = prob.make_inputs(seed=3, small=False)
-        for cfg in ccfgs:
-            conv2d_parity(cfg, xc)
-        # every compiled tile at both filter sizes, on shapes no block
-        # divides, one with rows of a multiple of 4 floats (cp.async
-        # staging) and one without (plain loads)
-        for shape in CONV2D_TILE_SHAPES:
-            tcfgs = conv2d_tile_configs(*shape)
-            print(f"conv2d: every compiled tile ({len(tcfgs)}) at {shape}")
-            xt = inputs_from_numpy(conv2d_inputs(2, *shape), "cuda",
-                                   dtype=torch.float32)
-            for cfg in tcfgs:
-                conv2d_parity(cfg, xt)
-        xcf = cfull.make_inputs(seed=4, small=False)
-        cbig = [dict(cops.DEFAULT_CONFIG)] + cfull.space.sample_distinct(2, 9)
-        print(f"conv2d: {len(cbig)} configs at {cfull.shape}")
-        for cfg in cbig:
-            conv2d_parity(cfg, xcf)
-
         for prob_cls, shapes, parity, full_prob in (
                 (HotspotProblem, ({"h": 200, "w": 300, "n_total": 12},),
                  hotspot_parity, hfull),
@@ -3029,6 +3096,30 @@ def main(argv=None) -> int:
             print(f"{prob.name}: {len(big)} configs at {prob.shape}")
             for cfg in big:
                 parity(cfg, xs)
+
+        # conv2d last: its compile ran on through the phases before
+        build_s, csass = conv2d_built()
+        prob = Conv2dProblem(shape=Conv2dProblem.small_shape, device="cuda")
+        ccfgs = covering_configs(prob.space, 12, seed=5)
+        print(f"conv2d: {len(ccfgs)} configs at {prob.shape}")
+        xc = prob.make_inputs(seed=3, small=False)
+        for cfg in ccfgs:
+            conv2d_parity(cfg, xc)
+        # every compiled tile at both filter sizes, on shapes no block
+        # divides, one with rows of a multiple of 4 floats (cp.async
+        # staging) and one without (plain loads)
+        for shape in CONV2D_TILE_SHAPES:
+            tcfgs = conv2d_tile_configs(*shape)
+            print(f"conv2d: every compiled tile ({len(tcfgs)}) at {shape}")
+            xt = inputs_from_numpy(conv2d_inputs(2, *shape), "cuda",
+                                   dtype=torch.float32)
+            for cfg in tcfgs:
+                conv2d_parity(cfg, xt)
+        xcf = cfull.make_inputs(seed=4, small=False)
+        cbig = [dict(cops.DEFAULT_CONFIG)] + cfull.space.sample_distinct(2, 9)
+        print(f"conv2d: {len(cbig)} configs at {cfull.shape}")
+        for cfg in cbig:
+            conv2d_parity(cfg, xcf)
 
         for name, w in worst.items():
             if name != "pnpoly" and not w["controls"]:
@@ -3142,6 +3233,10 @@ def main(argv=None) -> int:
                      if c["acc_dtype"] == "f32" and c["block_h"] == 1)
         print(f"  fastest f32 attention config with block_h 1 "
               f"{f32_h1[0] * 1e3:.4f} ms {cfgs_t[f32_h1[1]]}")
+
+    # phase 13 (d)'s dry runs need the host's cores and no card: they run
+    # while the paths below keep the card, not the host, busy
+    dryruns = start_dry_runs()
 
     with phase("nbody"):
         npath = run_path("nbody_h100", "nbody", nfull,
@@ -3654,7 +3749,7 @@ def main(argv=None) -> int:
 
     with phase("dist"):
         dst = dist_check(nvidia_smi_line(), counts, zero_counts, failures,
-                         train=tr)
+                         train=tr, dryruns=dryruns)
         record["dist"] = dst
         print(f"  dist phase {dst['seconds']:.1f} s (mark 60 s); attention "
               f"launches {dst['launches']}; script so far "

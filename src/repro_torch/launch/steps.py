@@ -222,7 +222,7 @@ class CellPlan:
 
 
 def optimize_config(cfg: ModelConfig, mesh) -> ModelConfig:
-    """Beyond-paper SPMD plan (EXPERIMENTS.md §Perf): explicit attention/MoE
+    """Beyond-paper SPMD plan (EXPERIMENTS.md §Perf): explicit attention
     sharding, kv-head replication to TP, scatter cache updates."""
     sizes = dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
     tp = sizes.get("model", 1)
@@ -232,7 +232,7 @@ def optimize_config(cfg: ModelConfig, mesh) -> ModelConfig:
         cand = tp // cfg.n_kv_heads
         if (cfg.n_heads // cfg.n_kv_heads) % cand == 0:
             r = cand
-    return dataclasses.replace(cfg, opt_attn=True, opt_moe=True,
+    return dataclasses.replace(cfg, opt_attn=True,
                                opt_scatter_cache=True, kv_repeat=r)
 
 

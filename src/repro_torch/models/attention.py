@@ -62,7 +62,9 @@ def _constrain_qkv(q, k, v, *, opt: bool):
       collectives when kv heads are replicated to TP, see ``kv_repeat``);
     * otherwise -> sequence on ``model`` for q (context parallelism), k/v
       replicated across ``model`` (partial-softmax psums are tiny vs the
-      full-remat copies the baseline suffers).
+      full-remat copies the baseline suffers).  In the port k and v keep
+      their placements: :func:`_sdpa_seq` gathers them as they enter its
+      region, so their gradients return reduce-scattered to them.
     """
     if not opt:
         return q, k, v, None
@@ -75,8 +77,6 @@ def _constrain_qkv(q, k, v, *, opt: bool):
         return q, k, v, "heads"
     if tp > 1 and q.shape[1] % tp == 0 and q.shape[1] > 1:
         q = constrain(q, ("pod", "data"), "model", None, None)
-        k = constrain(k, ("pod", "data"), None, None, None)
-        v = constrain(v, ("pod", "data"), None, None, None)
         return q, k, v, "seq"
     return q, k, v, None
 
@@ -178,20 +178,50 @@ def _sdpa_sharded(q, k, v, bias):
 SDPA_Q_CHUNKS = 16
 
 
-def _sdpa_chunked(q, k, v, *, window, causal):
+def _sdpa_chunked(q, k, v, *, window, causal, offset=None):
     """Exact q-chunked attention (opt_attn, long sequences): each chunk's
     softmax sees the full key range, so only the live (tq_c x tk) logits
-    block shrinks by the chunk count; the mask is built per chunk."""
+    block shrinks by the chunk count; the mask is built per chunk.
+    ``offset``: the position of q's first row minus that of k's first
+    (default: q's rows are the last of k's)."""
     tq, tk = q.shape[1], k.shape[1]
+    offset = tk - tq if offset is None else offset
     n = max(1, min(SDPA_Q_CHUNKS, tq // 512))
     while tq % n:
         n -= 1
     c = tq // n
     outs = []
     for i in range(n):
-        bias = _mask_bias(c, tk, (tk - tq) + i * c, window, causal, q.device)
+        bias = _mask_bias(c, tk, offset + i * c, window, causal, q.device)
         outs.append(_sdpa(q[:, i * c:(i + 1) * c], k, v, bias))
     return torch.cat(outs, dim=1) if n > 1 else outs[0]
+
+
+def _sdpa_seq(q, k, v, *, window, causal, chunked):
+    """Attention of DTensor q sharded over the sequence ("seq" mode of
+    :func:`_constrain_qkv`) in one local region: each rank runs its own
+    rows of q (chunked as :func:`_sdpa_chunked` where ``chunked``) against
+    the whole keys, its mask offset by its shard's first row; k and v
+    enter whole over every mesh dim but those that shard the batch (one
+    gather each), and on the way back their gradients, pending sums over
+    the ranks of the rows, are reduce-scattered onto their own
+    placements.  The output has q's placements."""
+    mesh = q.device_mesh
+    wq = [p if p in (Shard(0), Shard(1)) else Replicate()
+          for p in q.placements]
+    wkv = [p if p == Shard(0) else Replicate() for p in wq]
+    offset = k.shape[1] - q.shape[1] + shard_span(q.shape[1], mesh, wq,
+                                                  1)[0]
+
+    def fn(lq, lk, lv):
+        if chunked:
+            return _sdpa_chunked(lq, lk, lv, window=window, causal=causal,
+                                 offset=offset)
+        return _sdpa(lq, lk, lv, _mask_bias(lq.shape[1], lk.shape[1], offset,
+                                            window, causal, lq.device))
+
+    return local_region(fn, [(q, wq), (k, wkv), (v, wkv)], wq,
+                        (*q.shape[:3], v.shape[3]))
 
 
 def prefill_route(q, k, *, window, causal, kv_override,
@@ -331,7 +361,11 @@ def gqa_forward(p, x, *, positions, window=None, causal=True, qk_norm=False,
         out = _flash(q, k, v, kernel_config)
     else:
         ROUTES["plain"] += 1
-        if opt and q.shape[1] >= 2048:
+        chunked = opt and q.shape[1] >= 2048
+        if mode == "seq" and isinstance(q, DTensor):
+            out = _sdpa_seq(q, k, v, window=window, causal=causal,
+                            chunked=chunked)
+        elif chunked:
             out = _sdpa_chunked(q, k, v, window=window, causal=causal)
         else:
             bias = _mask_bias(q.shape[1], k.shape[1], 0, window, causal,

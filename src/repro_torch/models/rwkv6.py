@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from ..distributed.sharding import as_dtensor, local_region
+from ..distributed.sharding import as_dtensor, local_region, shard_span
 from .layers import Params, _plan, einsum, rms_norm
 
 HEAD_DIM = 64
@@ -151,32 +151,81 @@ def _wkv_sharded(s, r, k, v, logw, u):
         [s_pl, want], [(b, h, *s.shape[2:]), (b, t, h, v.shape[3])]))
 
 
+def _split(r):
+    """Whether the heads split evenly over every mesh dim that shards the
+    channels of DTensor ``r`` (B,T,D) (a plain tensor: yes)."""
+    if not isinstance(r, DTensor):
+        return True
+    n = 1
+    for size, pl in zip(r.device_mesh.shape, r.placements):
+        if pl == Shard(2):
+            n *= size
+    return (r.shape[2] // HEAD_DIM) % n == 0
+
+
+def _mix_gathered(s, r, k, v, logw, u):
+    """:func:`_wkv` of (B,T,D) DTensors whose channels a mesh dim cuts
+    inside a head (the model axis wider than the heads), in one local
+    region: r, k, v and logw enter with whole heads (each gathered over
+    the mesh dims that shard its channels, as its batch shard stays), the
+    recurrence runs on them, and each rank keeps its channels of the
+    output, the placement of the inputs that ``wo``'s product takes (the
+    gradients reduce-scattered back to the inputs' shards on the way
+    back).  r, k and v come in f32, the dtype the recurrence takes them
+    in, so their gradients' partial sums are reduced before one rounding
+    to bf16, as on one device.  The state leaves whole over those
+    dims."""
+    b, t, d = r.shape
+    h = d // HEAD_DIM
+    ins = (r, k, v, logw)
+    want = [pl if pl == Shard(0) else Replicate() for pl in r.placements]
+    out = [Shard(2) if pl == Shard(2) else w
+           for pl, w in zip(r.placements, want)]
+    lo, n = shard_span(d, r.device_mesh, out, 2)
+
+    def fn(ls, lu, lr, lk, lv, lw):
+        s, o = _wkv(ls, *(_split_heads(a, h) for a in (lr, lk, lv, lw)), lu)
+        return [s, o.reshape(*o.shape[:2], d)[..., lo:lo + n]]
+
+    return tuple(local_region(
+        fn, [(s, want), (u, [Replicate()] * len(want))]
+        + [(a, want) for a in ins],
+        [want, out], [(b, h, *s.shape[2:]), (b, t, d)]))
+
+
 def rwkv6_forward(p, x, *, state=None, make_cache=False):
     """Full-sequence pass, chunk by chunk."""
     b, t, d = x.shape
     h = d // HEAD_DIM
     x_prev = torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
     r, k, v, logw, g = _projections(p, x, x_prev)
-    r, k, v = (_split_heads(a, h).float() for a in (r, k, v))
-    logw = _split_heads(logw, h)
     u = p["u"][None, :, :, None]
-
     s = state if state is not None else \
         torch.zeros((b, h, HEAD_DIM, HEAD_DIM), dtype=torch.float32,
                     device=x.device)
-    s, out = _wkv(s, r, k, v, logw, u)
-    out = out.reshape(b, t, d)                               # (B,T,H*dv)
+    if _split(r):
+        r, k, v = (_split_heads(a, h).float() for a in (r, k, v))
+        s, out = _wkv(s, r, k, v, _split_heads(logw, h), u)
+        out = out.reshape(b, t, d)                           # (B,T,H*dv)
+    else:
+        s, out = _mix_gathered(s, r.float(), k.float(), v.float(), logw, u)
     out = _output(p, out, g, x)
     # decode state = (S, last token) — the token-shift mix needs x_{t-1}
     return out, ((s, x[:, -1, :]) if make_cache else None)
 
 
 def rwkv6_decode(p, x, state_tuple, *, position=None):
-    """One-token step.  ``state_tuple`` = (S, x_prev_token)."""
+    """One-token step.  ``state_tuple`` = (S, x_prev_token).  Where a mesh
+    dim cuts a head, the token's recurrence runs in
+    :func:`_mix_gathered`."""
     s, xprev = state_tuple
     b, _, d = x.shape
     h = d // HEAD_DIM
     r, k, v, logw, g = _projections(p, x, xprev[:, None, :])
+    if not _split(r):
+        s_new, out = _mix_gathered(s, r.float(), k.float(), v.float(), logw,
+                                   p["u"][None, :, :, None])
+        return _output(p, out, g, x), (s_new, x[:, 0, :])
     r, k, v = (_split_heads(a, h).float()[:, 0] for a in (r, k, v))
     lw = _split_heads(logw, h)[:, 0]
     kv = k[..., :, None] * v[..., None, :]

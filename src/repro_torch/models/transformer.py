@@ -71,7 +71,11 @@ class ModelConfig:
     # the planner flips these per mesh — see launch/steps.plan_cell and
     # EXPERIMENTS.md §Perf for the before/after)
     opt_attn: bool = False        # explicit attention sharding + kv replication
-    opt_moe: bool = False         # divisibility-aware MoE dispatch sharding
+    # the JAX package's divisibility-aware MoE dispatch sharding: kept so
+    # both packages' configs have the same fields, read nowhere here (the
+    # MoE region reads the experts' split off their placements, which
+    # never put ``model`` on an expert axis it does not divide)
+    opt_moe: bool = False
     opt_scatter_cache: bool = False  # decode caches: scatter, not onehot blend
     kv_repeat: int = 1            # kv-head replication factor (set by planner)
 
@@ -209,8 +213,7 @@ def _block_forward(p, x, cfg: ModelConfig, spec: BlockSpec, *, positions,
     if spec.mlp == "moe":
         o2, metrics = moe_lib.moe_ffn(p["moe"], h2, top_k=cfg.top_k,
                                       capacity_factor=cfg.capacity_factor,
-                                      group_size=cfg.moe_group,
-                                      opt=cfg.opt_moe)
+                                      group_size=cfg.moe_group)
         aux = metrics["aux_loss"]
     else:
         o2 = mlp(p["mlp"], h2, spec.mlp)

@@ -62,8 +62,21 @@ for arch, shape in (("granite-moe-3b-a800m", "train_4k"),
                                   resident=trace.resident_bytes,
                                   ops=trace.ops)
 
-# the probe: the opt plan's terms with the flash kernel's attention
+# on (2, 4): the opt plan's attention over the sequence (4 heads, 2 kv
+# heads, no repeat), audited
 from repro_torch.launch.steps import optimize_config
+from repro_torch.roofline.trace import count_shard_moves
+mesh24 = init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "model"))
+cfg = dataclasses.replace(optimize_config(reduce_config(
+    ARCHS["deepseek-coder-33b"]), mesh24), kv_repeat=1)
+with count_shard_moves() as moves:
+    trace = lower_cell(plan_cell(cfg, "train_4k", mesh24, microbatches=1),
+                       mesh24)
+out["seq.audit"] = {"coll": trace.coll_by_op,
+                    "dtensor": trace.dtensor_coll_by_op,
+                    "moves": sum(moves.values())}
+
+# the probe: the opt plan's terms with the flash kernel's attention
 from repro_torch.roofline.probe import corrected_report
 cfg = optimize_config(reduce_config(ARCHS["qwen3-8b"]), mesh)
 rep, res = corrected_report(cfg, "train_4k", mesh, arch="qwen3-8b",
@@ -115,6 +128,20 @@ def test_the_probe_swaps_plain_attention_for_the_flash_kernel(cells):
     assert rep["flops_per_chip"] == pytest.approx(step[0] + swap[0])
     assert set(b) == {"step", "sdpa_swap_wNone", "mb_extra"}
     assert rep["mesh"] == "4x2.opt" and p["microbatches"] >= 1
+
+
+def test_the_opt_plans_sequence_sharded_attention_issues_its_own_collectives(
+        cells):
+    """The reduced deepseek-coder-33b's ``train_4k`` cell under the
+    ``--opt`` plan without the kv-head repeat on a fake (2, 4) mesh: 4
+    heads, 2 kv heads, so q is sharded over the sequence and each rank
+    runs its rows' chunks (4096 tokens: the chunked route) in one region,
+    k and v gathered as they enter it.  Every collective is the port's
+    own: ``--audit``'s two counts are empty and zero (before, DTensor
+    sliced the sequence-sharded q for the chunks and gathered it)."""
+    got = cells["seq.audit"]
+    assert got["dtensor"] == {} and got["moves"] == 0
+    assert got["coll"]["all-gather"] > 0
 
 
 @pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
@@ -186,7 +213,9 @@ def test_the_clis_json_has_the_jax_keys(tmp_path):
 
 def test_chip_smokes_dist_phase_on_the_host():
     """``chip_smoke.dist_check`` on the CPU (gloo's one-rank mesh, the
-    reduced qwen3-8b, plain attention, the dry run at one layer)."""
+    reduced qwen3-8b, plain attention, the dry run at one layer, and its
+    two other cells, deepseek-coder-33b under ``--opt`` and
+    deepseek-v2-236b, audited clean)."""
     out = _run("""
     import dataclasses, json
     import chip_smoke as cs
@@ -200,14 +229,22 @@ def test_chip_smokes_dist_phase_on_the_host():
                         roof_batch=4, roof_micro=2,
                         train={"step_ms_median": 100.0,
                                "bound": {"bound_ms": 10.0}},
-                        dryrun_layers=1)
+                        dryruns=cs.start_dry_runs(
+                            [(cs.DRYRUN_ARGS, 1), *cs.DRYRUN_MORE]))
     print(json.dumps({"fails": fails, "backend": res["backend"],
                       "step": res["step"], "prefill": res["prefill"],
                       "dry": res["dryrun"]["json"]["mesh"],
+                      "more": [(r["json"]["arch"], r["json"]["mesh"],
+                                r["json"]["collective_audit"])
+                               for r in res["dryrun_more"]],
                       "roof": res["roofline"]["t_collective"]}))
     """, timeout=400)
     assert out["fails"] == []
     assert out["backend"] == "gloo" and out["dry"] == "16x16"
+    assert out["more"] == [
+        [arch, mesh, {"dtensor_coll_by_op": {}, "shard_dim_alltoall": 0}]
+        for arch, mesh in (("deepseek-coder-33b", "16x16.opt"),
+                           ("deepseek-v2-236b", "16x16"))]
     assert out["step"]["loss_rel"] <= 1e-6
     assert out["step"]["routes"] == {"plain": 2}
     assert out["prefill"]["launches"] == {"flash_attention": 0}

@@ -25,6 +25,10 @@ storage), in a subprocess with a timeout so no group outlives the test
   ``shard_dim_alltoall`` wrapped by ``trace.count_shard_moves``, which a
   positive control shows counting); the FLOPs again with the tracer's
   propagation skip off, in a process of their own;
+* one MoE block (the reduced granite-moe-3b-a800m) on the 2x2 mesh: its
+  collectives against a count by hand, its input's gradient reduced once;
+  one RWKV-6 block (2 heads) on the (2, 4) mesh, its recurrence on whole
+  heads;
 * the port's ``sharding.redistribute`` moving a shard by one all-to-all
   of its own;
 * a reduced dense step (qwen3-8b, every sharded axis divisible) on a 2x2
@@ -145,6 +149,8 @@ G = 3
 one = dataclasses.replace(base, n_layers=1)
 out["block"] = traced(one, one_block)
 if SKIP:
+    out["moe_block"] = traced(dataclasses.replace(
+        reduce_config(ARCHS["granite-moe-3b-a800m"]), n_layers=1), one_block)
     out["whole"] = traced(dataclasses.replace(base, n_layers=G), whole)
     out["none"] = traced(dataclasses.replace(base, n_layers=0), whole)
     out["one"] = traced(one, whole)
@@ -163,6 +169,9 @@ dist.destroy_process_group()
 dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=8)
 m24 = init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "model"))
 out["block24"] = traced(one, one_block, m24)
+if SKIP:
+    out["rwkv24"] = traced(dataclasses.replace(
+        reduce_config(ARCHS["rwkv6-1.6b"]), n_layers=1), one_block, m24)
 print(json.dumps(out))
 """
 
@@ -326,6 +335,76 @@ def test_a_block_whose_model_axis_does_not_divide_the_kv_heads(fake_pg):
         "collective-permute": 2 * kv_shard * f32}
     assert block["flops"] == flops
     assert block["dtensor_coll_by_op"] == {} and block["moves"] == 0
+
+
+def test_a_moe_block_reduces_its_inputs_gradient_once(fake_pg):
+    """One block of the reduced granite-moe-3b-a800m (GQA with 4 heads and
+    2 kv heads of 16, then a MoE of E = 8 experts of ff F = 128, top-2,
+    groups of 16 tokens) on the 2x2 (data, model) mesh, forward and
+    backward, against a count by hand, per chip (b = 2 sequences of T =
+    32 tokens, 4 of the 8 groups; the experts split over ``model``, EP):
+
+    * all-gather: the attention's four projections' TP shards over
+      ``data`` (numel / model, bf16) and the two layer norms' weights (D
+      f32 each); the router gathered whole, over one mesh dim and then the
+      other (D x E / 2, then D x E, f32), as every rank routes its tokens
+      over all the experts; the three expert weights' EP shards over
+      ``data`` (E x D x F / model bf16 each).  Nothing on the way back:
+      the experts' input arrives at the region whole and leaves it cut to
+      the rank's experts, so no gradient of the dispatched tokens or the
+      combine weights is gathered;
+    * all-reduce: the attention's output projection and the MoE's result,
+      each a pending sum over ``model`` (b x T x D bf16); the
+      load-balance loss's (2, E) f32 sums over ``data`` and over
+      ``model``, forward and back, and the loss itself (f32) over each;
+      on the way back the q/k/v input gradient and the MoE's input
+      gradient, each once (b x T x D bf16): the router's product, the
+      dispatch and the experts take the MoE's input in one region, which
+      sums their local gradients before it reduces them (before, the
+      router's f32 product reduced it alone and the dispatched tokens'
+      gradient was gathered);
+    * reduce-scatter: the attention projections' and the expert weights'
+      gradients to their (data, model) shards (numel / 4 bf16); the
+      router's, a pending sum on both mesh dims, over one and then the
+      other (D x E / 2, then / 4, f32); the layer norms' over ``data`` (D
+      / 2 f32 each).
+
+    None is DTensor's own, and its Shard-to-Shard step is never reached."""
+    from repro_torch.configs import ARCHS, reduce_config
+    cfg = reduce_config(ARCHS["granite-moe-3b-a800m"])
+    D, H, K, E, F = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                     cfg.n_experts, cfg.d_ff_expert)
+    dh, b, T, data, model, bf16, f32 = D // H, 2, 32, 2, 2, 2, 4
+    attn = [D * H * dh, D * K * dh, D * K * dh, H * dh * D]
+    experts = 3 * E * D * F
+    block = fake_pg["moe_block"]
+    assert block["coll_by_op"] == {
+        "all-gather": sum(attn) // model * bf16 + 2 * D * f32
+        + (D * E // 2 + D * E) * f32 + experts // model * bf16,
+        "all-reduce": 2 * b * T * D * bf16 + 2 * 2 * (2 * E * f32)
+        + 2 * f32 + 2 * b * T * D * bf16,
+        "reduce-scatter": (sum(attn) + experts) // (data * model) * bf16
+        + (D * E // 2 + D * E // 4) * f32 + 2 * (D // data) * f32}
+    assert block["dtensor_coll_by_op"] == {} and block["moves"] == 0
+
+
+def test_an_rwkv6_block_with_fewer_heads_than_the_model_axis(fake_pg):
+    """One block of the reduced rwkv6-1.6b (D = 128: 2 heads of 64) on the
+    (2, 4) (data, model) mesh, whose model axis cuts the channels inside a
+    head.  Its recurrence runs in one region on whole heads: r, k, v and
+    the decay each gathered over ``model`` in f32 (b x T x D, b = 2
+    sequences of T = 32 tokens on a chip), and on the way back their
+    gradients reduce-scattered to their channel shards (b x T x D /
+    model f32 each).  Every collective is the port's own, and DTensor's
+    Shard-to-Shard step is never reached (before, the head split
+    raised)."""
+    b, T, D, model, f32 = 2, 32, 128, 4, 4
+    block = fake_pg["rwkv24"]
+    assert block["dtensor_coll_by_op"] == {} and block["moves"] == 0
+    assert block["coll_by_op"]["all-gather"] >= 4 * b * T * D * f32
+    assert block["coll_by_op"]["reduce-scatter"] >= 4 * b * T * D // model \
+        * f32
+    assert block["flops"] > 0
 
 
 @pytest.mark.parametrize("key,model", [("block", 2), ("block24", 4)])

@@ -7,7 +7,8 @@ shared by the ranks) and ``out`` (a dict it fills) in its namespace, after
 ``torch.distributed.init_process_group("gloo")`` on a ``FileStore`` under
 ``tmp`` (no port is opened for the rendezvous, so workers that run at the
 same time cannot collide), with one torch thread.  :func:`run_ranks`
-returns the ranks' ``out`` dicts, in rank order.
+returns the ranks' ``out`` dicts, in rank order.  :func:`family_inputs`
+is the weights and batch the families' sharded steps are held on.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import sys
 import textwrap
 from pathlib import Path
 
+import numpy as np
 import torch
 
 REPO = Path(__file__).resolve().parents[1]
@@ -65,3 +67,21 @@ def run_ranks(body: str, world: int, tmp: Path, timeout: float = 240.0
         logs[r][-3000:] for r, _ in bad if r < len(logs))
     return [torch.load(tmp / f"rank{r}.pt", weights_only=False)
             for r in range(world)]
+
+
+def family_inputs(arch: str) -> dict:
+    """The reduced ``arch``'s weights from seed 0 and a batch of 8
+    sequences of 16 tokens (some labels masked), with its frames, from a
+    numpy seed."""
+    from repro_torch.configs import ARCHS, reduce_config
+    from repro_torch.models import build_model
+    cfg = reduce_config(ARCHS[arch])
+    rng = np.random.default_rng(2)
+    batch = {k: rng.integers(0, cfg.vocab, (8, 16)).astype(np.int64)
+             for k in ("tokens", "labels")}
+    batch["labels"][0, :3] = -1
+    if cfg.frontend == "audio":
+        batch["frames"] = rng.standard_normal(
+            (8, 16, cfg.d_model)).astype(np.float32)
+    return {"state": build_model(cfg).init(0, "cpu").state_dict(),
+            "batch": {k: torch.from_numpy(v) for k, v in batch.items()}}
