@@ -224,22 +224,31 @@ Phases, each timed:
                bounds; nothing launched), (b) a prefill at 4 layers of a
                2048-token prompt whose attention runs the flash kernel on
                each rank's local shards (exactly 4 launches, logits within
-               ``LM_TOL`` of the unsharded model's); (c) the roofline of
+               ``LM_TOL`` of the unsharded model's), and the same prefill
+               under the ``--opt`` plan (``optimize_config``) followed by
+               two decode steps whose cache rows the scatter route writes
+               through a local region (exactly 4 launches again; each
+               step's logits within ``LM_TOL`` of the unsharded plain
+               model's); (c) the roofline of
                phase 12's exact step traced on fake tensors: its three
                terms, bound, useful-FLOPs ratio and phase 12's measured
                median step over the ideal overlapped time, beside phase
                12's hand-reckoned bound; (d) ``python -m
                repro_torch.launch.dryrun --arch qwen3-8b --shape train_4k
                --layers 2`` on its fake 16 x 16 process group, and beside
-               it deepseek-coder-33b's ``train_4k --opt`` and
-               deepseek-v2-236b's ``train_4k`` at one layer, all three
-               ``--audit`` at once, each JSON read back (terms, all-reduce
-               bytes, mfu, peak GiB per chip, seconds; none may hold a
-               collective DTensor issued on its own); they need no card,
+               it, at one layer, deepseek-coder-33b's ``train_4k --opt``,
+               deepseek-v2-236b's ``train_4k`` and ``decode_32k``,
+               qwen3-8b's ``decode_32k --opt``, rwkv6-1.6b's ``long_500k
+               --multi-pod`` and ``prefill_32k`` (its recurrence traced a
+               chunk for all), all seven ``--audit`` at once, each JSON
+               read back (terms, all-reduce bytes, mfu, peak GiB per chip,
+               seconds; none may hold a collective DTensor issued on its
+               own); they need no card,
                so main starts them before phase 5's nbody path, whose
                host waits on the card, and this phase collects them
                (``start_dry_runs``)
-               (``dist_launches`` in attention's line).
+               (``dist_launches`` and ``dist_opt_launches`` in
+               attention's line).
 
 Prints the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  A kernel's ``launches`` counts its wrapper's calls on its path;
@@ -2183,9 +2192,13 @@ def train_check(smi: str, counts, zero_counts, failures: list[str], *,
 #: ``CARD_GRAD_TOL``); (b) a prefill at ``DIST_PREFILL_LAYERS`` layers of
 #: a ``DIST_PREFILL_SEQ``-token prompt on that mesh, attention on the
 #: flash kernel through each rank's local shards (one launch a layer),
-#: against the unsharded model's logits (``LM_TOL``)
+#: against the unsharded model's logits (``LM_TOL``), then under the
+#: ``--opt`` plan with ``DIST_DECODE_STEPS`` decode steps after it, each
+#: step's cache rows written by the scatter route in a local region,
+#: against the unsharded plain model's decode (``LM_TOL``)
 DIST_STEP_LAYERS, DIST_STEP_SEQ = 2, 4096
 DIST_PREFILL_LAYERS, DIST_PREFILL_SEQ = 4, 2048
+DIST_DECODE_STEPS = 2
 #: (d): the dry run's cell and depth: qwen3-8b's train_4k on the fake 16 x
 #: 16 mesh, cut to ``DRYRUN_LAYERS`` of 36 layers for the phase's time
 #: (its trace of all 36 layers and 16 microbatches takes minutes), with
@@ -2193,15 +2206,26 @@ DIST_PREFILL_LAYERS, DIST_PREFILL_SEQ = 4, 2048
 #: its Shard-to-Shard step, which must both be none
 DRYRUN_ARGS = ("--arch", "qwen3-8b", "--shape", "train_4k", "--audit")
 DRYRUN_LAYERS = 2
-#: (d) beside it, each at one pattern's depth and audited alike:
+#: (d) beside it, each at one layer and audited alike:
 #: deepseek-coder-33b's train_4k under the ``--opt`` plan (56 heads on 16:
-#: attention over the sequence, in the port's own region) and
+#: attention over the sequence, in the port's own region),
 #: deepseek-v2-236b's (MLA, and the MoE whose input gradient is reduced
-#: once a layer: its all-reduce bytes printed)
+#: once a layer: its all-reduce bytes printed) and its decode (MLA's cache
+#: write and scores on their own shards), qwen3-8b's decode under the
+#: ``--opt`` plan (the scatter write on a sharded cache), rwkv6-1.6b's
+#: long_500k on the two-pod mesh (its one-token recurrence in a region)
+#: and its prefill_32k (its recurrence traced one chunk for all: the
+#: trace's seconds printed)
 DRYRUN_MORE = (
     (("--arch", "deepseek-coder-33b", "--shape", "train_4k", "--opt",
       "--audit"), 1),
-    (("--arch", "deepseek-v2-236b", "--shape", "train_4k", "--audit"), 1))
+    (("--arch", "deepseek-v2-236b", "--shape", "train_4k", "--audit"), 1),
+    (("--arch", "qwen3-8b", "--shape", "decode_32k", "--opt", "--audit"),
+     1),
+    (("--arch", "deepseek-v2-236b", "--shape", "decode_32k", "--audit"), 1),
+    (("--arch", "rwkv6-1.6b", "--shape", "long_500k", "--multi-pod",
+      "--audit"), 1),
+    (("--arch", "rwkv6-1.6b", "--shape", "prefill_32k", "--audit"), 1))
 
 
 def start_dry_runs(runs=None) -> dict:
@@ -2238,7 +2262,9 @@ def dist_check(smi: str, counts, zero_counts, failures: list[str], *,
                step_layers: int = DIST_STEP_LAYERS,
                step_seq: int = DIST_STEP_SEQ,
                prefill_layers: int = DIST_PREFILL_LAYERS,
-               prefill_seq: int = DIST_PREFILL_SEQ, train: dict | None = None,
+               prefill_seq: int = DIST_PREFILL_SEQ,
+               decode_steps: int = DIST_DECODE_STEPS,
+               train: dict | None = None,
                roof_cfg=None, roof_batch: int = TRAIN_BATCH,
                roof_micro: int = TRAIN_MICRO, dryruns: dict) -> dict:
     """Distribution, the roofline and the dry run.  (a) and (b) as the
@@ -2247,7 +2273,8 @@ def dist_check(smi: str, counts, zero_counts, failures: list[str], *,
     mesh (NCCL on the card: a failed init fails the run); every kernel's
     count set to 0 just before each sharded run and read just after: (a)
     launches nothing (training attention is plain), (b) launches the
-    flash kernel once a layer.  (c) The roofline of phase 12's exact step
+    flash kernel once a layer, under the plain plan and again under the
+    ``--opt`` plan, whose decode steps launch nothing.  (c) The roofline of phase 12's exact step
     (``roof_cfg``, default ``TRAIN_ARCH`` at ``TRAIN_LAYERS`` layers, 4 x
     4096 tokens in 4 microbatches), traced on fake tensors on ``device``
     (``launch.steps.lower_cell``): its three terms, bound and useful-FLOPs
@@ -2266,12 +2293,14 @@ def dist_check(smi: str, counts, zero_counts, failures: list[str], *,
     import numpy as np
     import torch
     import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
 
     from repro_torch.configs import ARCHS, SHAPES
     from repro_torch.data import DataConfig, make_pipeline
     from repro_torch.distributed import sharding as shd
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.launch.steps import lower_cell, plan_cell
+    from repro_torch.launch.steps import (lower_cell, optimize_config,
+                                          plan_cell)
     from repro_torch.models import build_model
     from repro_torch.models.attention import ROUTES
     from repro_torch.quickstart import rel_l2
@@ -2288,17 +2317,36 @@ def dist_check(smi: str, counts, zero_counts, failures: list[str], *,
         if not ok:
             failures.append(f"dist: {msg}")
 
-    def twins(layers: int):
-        """A model at ``layers`` layers from seed 0 and a copy of it whose
-        parameters are placed by their specs on the mesh."""
-        c = dataclasses.replace(base, n_layers=layers)
-        ref = build_model(c).init(0, dev)
+    def placed_twin(c, ref):
+        """A model of config ``c`` with ``ref``'s weights, its parameters
+        placed by their specs on the mesh."""
         sh = build_model(c)
         sh.to_empty(device=dev)
         sh.load_state_dict(ref.state_dict())
         shd.place_params(sh, shd.param_shardings(
             dict(sh.named_parameters()), sh.param_axes(), mesh), mesh)
-        return c, ref, sh
+        return sh
+
+    def twins(layers: int):
+        """A model at ``layers`` layers from seed 0 and a copy of it whose
+        parameters are placed by their specs on the mesh."""
+        c = dataclasses.replace(base, n_layers=layers)
+        ref = build_model(c).init(0, dev)
+        return c, ref, placed_twin(c, ref)
+
+    def grown(caches, rows: int):
+        """Prefill ``caches`` with ``rows`` empty cache rows after the
+        prompt's (the attention caches' dim 1; on the one-rank mesh a
+        DTensor's local shard is the whole), as a serving engine's caches
+        have room for the tokens to come."""
+        def pad(t):
+            if isinstance(t, DTensor):
+                return DTensor.from_local(pad(t.to_local()), t.device_mesh,
+                                          t.placements)
+            return torch.cat([t, t.new_zeros((t.shape[0], rows,
+                                              *t.shape[2:]))], dim=1)
+        return [{k: {n: pad(t) for n, t in v.items()} if k == "attn" else v
+                 for k, v in c.items()} for c in caches]
 
     def placed(batch):
         return {k: shd.place(v, shd.batch_spec(tuple(v.shape), mesh), mesh)
@@ -2378,7 +2426,49 @@ def dist_check(smi: str, counts, zero_counts, failures: list[str], *,
     check(prefill_err <= LM_TOL,
           f"(b) sharded prefill logits vs unsharded: rel_l2 "
           f"{prefill_err:.3e} > {LM_TOL:g}")
-    del ref, sh, want, got
+    del sh, got
+
+    # (b) under the --opt plan: the prefill and decode steps, whose cache
+    # rows the scatter route writes on the mesh, against the unsharded
+    # plain model's
+    t0 = time.perf_counter()
+    c_opt = optimize_config(cb, mesh)
+    sh = placed_twin(c_opt, ref)
+    nxt = torch.as_tensor(np.random.default_rng(6).integers(
+        0, cb.vocab, (1, decode_steps)), device=dev)
+    with torch.no_grad():
+        _, caches, _ = ref.prefill({"tokens": tokens})
+        caches = grown(caches, decode_steps)
+        want_dec = []
+        for i in range(decode_steps):
+            lg, caches = ref.decode_step(caches, nxt[:, i:i + 1],
+                                         prefill_seq + i)
+            want_dec.append(lg)
+    zero_counts()
+    ROUTES.clear()
+    with shd.use_mesh(mesh), torch.no_grad():
+        got_pre, caches, _ = sh.prefill(placed({"tokens": tokens}))
+        caches = grown(caches, decode_steps)
+        got_dec = []
+        for i in range(decode_steps):
+            lg, caches = sh.decode_step(
+                caches, placed({"t": nxt[:, i:i + 1]})["t"], prefill_seq + i)
+            got_dec.append(lg)
+    launches_o, routes_o = counts(), dict(ROUTES)
+    opt_prefill_err = rel_l2(got_pre.full_tensor().float(), want.float())
+    decode_errs = [rel_l2(g.full_tensor().float(), w.float())
+                   for g, w in zip(got_dec, want_dec)]
+    decode_s = time.perf_counter() - t0
+    check(c_opt.opt_scatter_cache and c_opt.opt_attn,
+          f"(b) the --opt plan's config {c_opt}")
+    check(launches_o.get("flash_attention", 0) == want_launch and sum(
+        launches_o.values()) == want_launch,
+          f"(b) --opt prefill and decode launches {launches_o}, want "
+          f"flash_attention {want_launch}")
+    check(opt_prefill_err <= LM_TOL and max(decode_errs) <= LM_TOL,
+          f"(b) --opt prefill and decode logits vs unsharded plain: rel_l2 "
+          f"{opt_prefill_err:.3e}, {decode_errs} > {LM_TOL:g}")
+    del ref, sh, want, caches, got_pre, got_dec, want_dec
     dist.destroy_process_group()
     if cuda:
         torch.cuda.empty_cache()
@@ -2441,11 +2531,16 @@ def dist_check(smi: str, counts, zero_counts, failures: list[str], *,
         "prefill": {"layers": prefill_layers, "seq": prefill_seq,
                     "rel_l2": prefill_err, "launches": launches_b,
                     "routes": routes_b, "seconds": prefill_s},
+        "opt_decode": {"steps": decode_steps,
+                       "prefill_rel_l2": opt_prefill_err,
+                       "decode_rel_l2": decode_errs, "launches": launches_o,
+                       "routes": routes_o, "seconds": decode_s},
         "roofline": roof, "hand_bound_ms": hand, "measured_step_ms": measured,
         "dryrun": dries[0], "dryrun_more": dries[1:],
         "dryrun_wait_s": wait_s,
         "dryrun_ahead_s": t_wait - dryruns["started"],
         "launches": launches_b.get("flash_attention", 0),
+        "opt_launches": launches_o.get("flash_attention", 0),
         "nvidia_smi": smi,
     }
     print(f"  mesh {dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))} on "
@@ -2459,6 +2554,12 @@ def dist_check(smi: str, counts, zero_counts, failures: list[str], *,
           f"logits rel_l2 {prefill_err:.3e}; flash launches "
           f"{launches_b.get('flash_attention', 0)}, routes {routes_b}; "
           f"{prefill_s:.1f} s ({smi})")
+    print(f"  (b) --opt plan: prefill logits rel_l2 {opt_prefill_err:.3e}, "
+          f"{decode_steps} decode steps (scatter cache writes) rel_l2 "
+          + ", ".join(f"{e:.3e}" for e in decode_errs)
+          + f" vs the unsharded plain model; flash launches "
+          f"{launches_o.get('flash_attention', 0)}, routes {routes_o}; "
+          f"{decode_s:.1f} s ({smi})")
     print(f"  (c) roofline of phase 12's step ({cc.n_layers} layers, "
           f"{roof_batch} x {roof_seq} tokens in {roof_micro} microbatches, "
           f"traced in {trace.seconds:.1f} s, {trace.ops} ops): compute "
@@ -3752,7 +3853,8 @@ def main(argv=None) -> int:
                          train=tr, dryruns=dryruns)
         record["dist"] = dst
         print(f"  dist phase {dst['seconds']:.1f} s (mark 60 s); attention "
-              f"launches {dst['launches']}; script so far "
+              f"launches {dst['launches']} (--opt {dst['opt_launches']}); "
+              f"script so far "
               f"{time.time() - STARTED:.1f} s")
 
     lines = [
@@ -3791,6 +3893,7 @@ def main(argv=None) -> int:
          "lm_launches": lm["launches"],
          "train_launches": tr["launches"]["flash_attention"],
          "dist_launches": dst["launches"],
+         "dist_opt_launches": dst["opt_launches"],
          "build_s": build_s},
     ] + f32_lines
     for line in f32_lines:

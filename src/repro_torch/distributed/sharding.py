@@ -271,6 +271,16 @@ def all_reduce(t, mesh, dims):
     return _Collective.apply(t, f, f)
 
 
+def all_reduce_max(t, mesh, dims):
+    """Local ``t``'s elementwise max over mesh dims ``dims`` (an
+    all-reduce each) on every rank, inside a :func:`local_region`; for a
+    value no gradient flows through (a softmax's shift)."""
+    from torch.distributed import _functional_collectives as funcol
+    for i in dims:
+        t = _wait(funcol.all_reduce(t, "max", (mesh, i)))
+    return t
+
+
 def _swap(t, mesh, i: int):
     """Local ``t`` exchanged with the rank half the group away on mesh dim
     ``i`` (rank ``c`` receives rank ``c + n/2 mod n``'s): one permute, an

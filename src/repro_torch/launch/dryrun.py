@@ -37,7 +37,8 @@ which keeps TP inside an 8-GPU NVLink node.
 bytes by opcode that DTensor's own op strategies issued in the trace
 (``dtensor_coll_by_op``) and the calls of DTensor's own Shard-to-Shard
 step (``shard_dim_alltoall``): the port issues every collective of the
-step itself, so both are empty, on any torch version.
+step itself, so both are empty, on any torch version.  ``--all`` passes
+``--audit``, ``--opt`` and ``--layers`` on to every cell.
 """
 
 import argparse
@@ -205,7 +206,9 @@ def main(argv=None) -> None:
     cells = [(a, s, mp) for a, s in all_cells() for mp in meshes]
     if args.skip_existing:
         cells = [(a, s, mp) for a, s, mp in cells
-                 if not cell_path(out_dir, a, s, "2x16x16" if mp else "16x16",
+                 if not cell_path(out_dir, a, s,
+                                  ("2x16x16" if mp else "16x16")
+                                  + (".opt" if args.opt else ""),
                                   args.layers).exists()]
     print(f"{len(cells)} cells to run", flush=True)
     if args.jobs <= 1:
@@ -213,7 +216,8 @@ def main(argv=None) -> None:
         for a, s, mp in cells:
             try:
                 run_cell(a, s, mp, out_dir, probe=(args.probe and not mp),
-                         layers=args.layers)
+                         optimized=args.opt, layers=args.layers,
+                         audit=args.audit)
             except Exception as e:           # noqa: BLE001 — report & continue
                 failures.append((a, s, mp, repr(e)))
                 print(f"FAIL {a} {s} multi_pod={mp}: {e!r}", flush=True)
@@ -234,8 +238,12 @@ def main(argv=None) -> None:
                 cmd.append("--multi-pod")
             elif args.probe:
                 cmd.append("--probe")
+            if args.opt:
+                cmd.append("--opt")
             if args.layers:
                 cmd += ["--layers", str(args.layers)]
+            if args.audit:
+                cmd.append("--audit")
             procs.append((subprocess.Popen(cmd), (a, s, mp)))
         still = []
         for p, cell in procs:

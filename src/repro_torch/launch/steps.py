@@ -335,7 +335,7 @@ def _fake_leaves(abstract, specs, mesh, device):
     return x if mesh is None else shd.place(x, specs, mesh)
 
 
-def lower_cell(plan: CellPlan, mesh, device=None):
+def lower_cell(plan: CellPlan, mesh, device=None, once: bool = True):
     """Trace one step of the cell under its mesh (a ``DeviceMesh``, on a
     fake process group for the dry run): parameters, optimizer state and
     batch are fake tensors (no storage) placed by the plan, each rank's
@@ -344,7 +344,9 @@ def lower_cell(plan: CellPlan, mesh, device=None):
     rank's local work.  With ``mesh`` None (one chip) they are whole fake
     tensors on ``device`` (default the CPU), unplaced.  Returns the
     tracer's :class:`~repro_torch.roofline.trace.StepTrace` (nothing is
-    compiled or donated: the step updates the parameters in place)."""
+    compiled or donated: the step updates the parameters in place).
+    ``once`` False traces every token of the recurrences, which the tracer
+    otherwise traces one chunk for all, to the same terms."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from ..roofline.trace import StepTracer
@@ -368,8 +370,8 @@ def lower_cell(plan: CellPlan, mesh, device=None):
             args = [opt_state, batch]
         else:
             args = [batch]
-        tracer = StepTracer(fake_mode=fake,
-                            resident=[params, *args])
+        tracer = StepTracer(fake_mode=fake, resident=[params, *args],
+                            once=once)
         with (shd.use_mesh(mesh) if mesh is not None
               else contextlib.nullcontext()), tracer:
             plan.step_fn(model, *args)

@@ -28,10 +28,11 @@ from __future__ import annotations
 from collections import Counter
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from ..distributed.sharding import (as_dtensor, axis_size, constrain,
-                                    local_region, redistribute, shard_span)
+from ..distributed.sharding import (all_reduce, all_reduce_max, as_dtensor,
+                                    axis_size, constrain, local_region,
+                                    redistribute, shard_span)
 from ..kernels.attention import kernel as flash_kernel
 from ..kernels.attention import ops as flash_ops
 from ..kernels.attention.space import build_space as flash_space
@@ -385,7 +386,8 @@ def gqa_forward(p, x, *, positions, window=None, causal=True, qk_norm=False,
 def _insert_row(cache, new, insert_b):
     """Write ``new`` (B,1,...) into per-batch row ``insert_b`` of ``cache``
     (B,T,...).  One-hot blend — vectorized over the batch so every slot may
-    sit at a different sequence position (continuous batching)."""
+    sit at a different sequence position (continuous batching); a row
+    outside ``[0, T)`` writes nothing."""
     t = cache.shape[1]
     onehot = torch.arange(t, device=cache.device)[None, :] \
         == insert_b[:, None]                                   # (B,T)
@@ -395,10 +397,42 @@ def _insert_row(cache, new, insert_b):
 
 def _scatter_row(cache, new, insert_b):
     """The same write as :func:`_insert_row` by indexing: one row a batch
-    entry, written into ``cache`` in place (``opt_scatter_cache``)."""
-    cache[torch.arange(cache.shape[0], device=cache.device), insert_b] = \
-        new[:, 0].to(cache.dtype)
+    entry, written into ``cache`` in place (``opt_scatter_cache``).  A
+    batch entry whose row lies outside ``[0, T)`` writes its row clamped
+    into the cache back unchanged: nothing, as the blend and the JAX
+    package's scatter (which drops it)."""
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    t = cache.shape[1]
+    held = ((insert_b >= 0) & (insert_b < t)).reshape(
+        -1, *(1,) * (new.ndim - 2))
+    insert_b = insert_b.clamp(0, t - 1)
+    cache[rows, insert_b] = torch.where(held, new[:, 0].to(cache.dtype),
+                                        cache[rows, insert_b])
     return cache
+
+
+def _write_row(cache, new, insert_b, scatter: bool):
+    """``new`` (B,1,...) written into row ``insert_b`` (B,) of ``cache``
+    (B,T,...) by :func:`_scatter_row` (``scatter``) or
+    :func:`_insert_row`.  A DTensor cache is written in one local region
+    on its own placements: each rank writes its batch rows, and its heads
+    or channels, into its local shard, and where a mesh dim shards the
+    sequence, only the rank that holds a row writes it (the row lies
+    outside every other rank's shard).  ``new`` enters with the cache's
+    batch and trailing shards and whole over the sequence's mesh dims, so
+    the write itself sends nothing: the one collective is ``new``'s own
+    move to those placements, where it has others."""
+    write = _scatter_row if scatter else _insert_row
+    if not isinstance(cache, DTensor):
+        return write(cache, new, insert_b)
+    mesh = cache.device_mesh
+    cw = tuple(Replicate() if p.is_partial() else p for p in cache.placements)
+    nw = tuple(Replicate() if p == Shard(1) else p for p in cw)
+    bw = tuple(p if p == Shard(0) else Replicate() for p in cw)
+    lo, n = shard_span(cache.shape[1], mesh, cw, 1)
+    return local_region(
+        lambda lc, ln, lb: write(lc, ln, lb - lo) if n else lc,
+        [(cache, cw), (new, nw), (insert_b, bw)], cw, cache.shape)
 
 
 def _positions(position, b, device):
@@ -448,14 +482,9 @@ def gqa_decode(p, x, cache, *, position, insert_at=None, qk_norm=False,
             else (("pod", "data"), "model", None, None)
         cache = {"k": constrain(cache["k"], *spec),
                  "v": constrain(cache["v"], *spec)}
-    write = _scatter_row if scatter else _insert_row
-    k = write(cache["k"], k_new, ins_b)
-    v = write(cache["v"], v_new, ins_b)
-    tk = k.shape[1]
-    cols = torch.arange(tk, device=x.device)[None, :]
-    bias = torch.zeros((b, tk), dtype=torch.float32, device=x.device) \
-        .masked_fill(cols > pos_b[:, None], NEG_INF)
-    bias = bias[:, None, None, None, :]          # (B,1,1,1,Tk) per-slot
+    k = _write_row(cache["k"], k_new, ins_b, scatter)
+    v = _write_row(cache["v"], v_new, ins_b, scatter)
+    bias = _decode_bias(pos_b, 0, k.shape[1])[:, None]  # (B,1,1,1,Tk)
     out = _sdpa(q, k, v, bias)
     out = einsum("bthk,hkd->btd", out, p["wo"])
     if opt:
@@ -557,21 +586,83 @@ def mla_decode(p, x, cache, *, position, rope_theta=10_000.0, scatter=False):
     ckv_new = rms_norm(dkv, p["kv_ln"])
     kpe_new = apply_rope(kpe[:, :, None, :], pos_b[:, None],
                          rope_theta)[:, :, 0, :]
-    write = _scatter_row if scatter else _insert_row
-    ckv = write(cache["ckv"], ckv_new, pos_b)
-    k_pe = write(cache["k_pe"], kpe_new, pos_b)
+    ckv = _write_row(cache["ckv"], ckv_new, pos_b, scatter)
+    k_pe = _write_row(cache["k_pe"], kpe_new, pos_b, scatter)
 
     # absorb W_uk into q: q_lat (B,1,H,C); scores over latent directly
     q_lat = einsum("bthk,chk->bthc", q_nope, p["w_uk"])
-    s_lat = einsum("bthc,bTc->bhtT", q_lat.float(), ckv.float())
-    s_pe = einsum("bthr,bTr->bhtT", q_pe.float(), k_pe.float())
-    tk = ckv.shape[1]
-    cols = torch.arange(tk, device=x.device)[None, :]
-    bias = torch.zeros((b, tk), dtype=torch.float32, device=x.device) \
-        .masked_fill(cols > pos_b[:, None], NEG_INF)
-    bias = bias[:, None, None, :]                 # (B,1,1,Tk) for bhtT
-    w = torch.softmax((s_lat + s_pe) * scale + bias, dim=-1)
-    o_lat = einsum("bhtT,bTc->bthc", w.to(ckv.dtype), ckv)
+    o_lat = _mla_attend(q_lat, q_pe, ckv, k_pe, pos_b, scale)
     out = einsum("bthc,chk->bthk", o_lat, p["w_uv"])
     out = einsum("bthk,hkd->btd", out, p["wo"])
     return out, {"ckv": ckv, "k_pe": k_pe}
+
+
+def _mla_attend(q_lat, q_pe, ckv, k_pe, pos_b, scale):
+    """MLA's absorbed decode attention: the (B,1,H,C) latent output of
+    one query token's scores against the latent cache ``ckv`` (B,T,C) and
+    the RoPE keys ``k_pe`` (B,T,R), rows past ``pos_b`` masked.  DTensors
+    through :func:`_mla_attend_sharded`."""
+    if any(isinstance(t, DTensor) for t in (q_lat, q_pe, ckv, k_pe)):
+        return _mla_attend_sharded(q_lat, q_pe, ckv, k_pe, pos_b, scale)
+    s_lat = einsum("bthc,bTc->bhtT", q_lat.float(), ckv.float())
+    s_pe = einsum("bthr,bTr->bhtT", q_pe.float(), k_pe.float())
+    w = torch.softmax((s_lat + s_pe) * scale + _decode_bias(pos_b, 0,
+                                                            ckv.shape[1]),
+                      dim=-1)
+    return einsum("bhtT,bTc->bthc", w.to(ckv.dtype), ckv)
+
+
+def _decode_bias(pos_b, lo: int, n: int):
+    """(B,1,1,n) additive mask of cache rows ``lo .. lo + n`` past each
+    batch entry's position ``pos_b`` (valid: rows up to the position)."""
+    cols = torch.arange(lo, lo + n, device=pos_b.device)[None, :]
+    bias = torch.zeros((pos_b.shape[0], n), dtype=torch.float32,
+                       device=pos_b.device).masked_fill(
+                           cols > pos_b[:, None], NEG_INF)
+    return bias[:, None, None, :]                 # (B,1,1,Tk) for bhtT
+
+
+def _mla_attend_sharded(q_lat, q_pe, ckv, k_pe, pos_b, scale):
+    """:func:`_mla_attend` in one local region over the shards the cache
+    already has, mesh dim by mesh dim: where the cache shards the batch,
+    everything does; where it shards the sequence, each rank scores its
+    own rows against the whole query (gathered over that dim: one token's
+    H x (C + R), where the cache would be T x C), the softmax's max and
+    sum are all-reduced over it, and each rank's weighted rows leave as a
+    pending sum of the output, reduced on the way out; where the cache is
+    whole, a head-sharded query keeps its heads.  Nothing of the cache
+    moves.  Without a sequence-sharding dim the local ops are
+    :func:`_mla_attend`'s own."""
+    mesh = next(t.device_mesh for t in (q_lat, q_pe, ckv, k_pe)
+                if isinstance(t, DTensor))
+    ckv, k_pe = as_dtensor(ckv, mesh), as_dtensor(k_pe, mesh)
+    q_lat = as_dtensor(q_lat, mesh)
+    cw, qw, ow, seq = [], [], [], []
+    for i, (pc, pq) in enumerate(zip(ckv.placements, q_lat.placements)):
+        if pc == Shard(0):
+            cw.append(pc), qw.append(pc), ow.append(pc)
+        elif pc == Shard(1):
+            cw.append(pc), qw.append(Replicate()), ow.append(Partial())
+            seq.append(i)
+        elif pq == Shard(2):
+            cw.append(Replicate()), qw.append(pq), ow.append(pq)
+        else:
+            cw.append(Replicate()), qw.append(Replicate()), \
+                ow.append(Replicate())
+    bw = [p if p == Shard(0) else Replicate() for p in cw]
+    lo, n = shard_span(ckv.shape[1], mesh, cw, 1)
+
+    def fn(lq, lqp, lc, lk, lp):
+        if not seq:
+            return _mla_attend(lq, lqp, lc, lk, lp, scale)
+        s_lat = einsum("bthc,bTc->bhtT", lq.float(), lc.float())
+        s_pe = einsum("bthr,bTr->bhtT", lqp.float(), lk.float())
+        z = (s_lat + s_pe) * scale + _decode_bias(lp, lo, n)
+        m = all_reduce_max(z.detach().amax(-1, keepdim=True), mesh, seq)
+        e = torch.exp(z - m)
+        w = e / all_reduce(e.sum(-1, keepdim=True), mesh, seq)
+        return einsum("bhtT,bTc->bthc", w.to(lc.dtype), lc)
+
+    return local_region(
+        fn, [(q_lat, qw), (q_pe, qw), (ckv, cw), (k_pe, cw), (pos_b, bw)],
+        ow, (*q_lat.shape[:3], ckv.shape[2]))

@@ -183,6 +183,29 @@ def einsum_shared(x, *products):
     return out
 
 
+def scan_chunks(fn, state, xs, consts, max_chunk: int):
+    """A recurrence chunk by chunk: ``fn(state, *chunk_xs, *consts) ->
+    (state, out)`` over each chunk of tokens (dim 1) of the (B, T, ...)
+    ``xs`` in turn, a chunk the largest divisor of T not above
+    ``max_chunk``; returns the last state and the outputs joined on dim
+    1.  Under a step tracer on fake tensors it runs the first chunk and
+    counts the rest (:meth:`repro_torch.roofline.trace.StepTracer.
+    scan_once`); otherwise every token runs."""
+    from ..roofline.trace import once_tracer
+    t = xs[0].shape[1]
+    chunk = min(max_chunk, t)
+    while t % chunk:
+        chunk -= 1
+    tracer = once_tracer(state, *xs, *consts) if t > chunk else None
+    if tracer is not None:
+        return tracer.scan_once(fn, state, xs, consts, chunk)
+    outs = []
+    for c in range(0, t, chunk):
+        state, o = fn(state, *(x[:, c:c + chunk] for x in xs), *consts)
+        outs.append(o)
+    return state, torch.cat(outs, dim=1)
+
+
 def rms_norm(x, w, eps=1e-6):
     """RMS norm over the last dim, weighted by ``w``; DTensors through
     :func:`_rms_norm_sharded`."""

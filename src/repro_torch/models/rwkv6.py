@@ -18,7 +18,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..distributed.sharding import as_dtensor, local_region, shard_span
-from .layers import Params, _plan, einsum, rms_norm
+from .layers import Params, _plan, einsum, rms_norm, scan_chunks
 
 HEAD_DIM = 64
 SCAN_CHUNK = 256
@@ -119,16 +119,7 @@ def _wkv(s, r, k, v, logw, u):
     :func:`_wkv_sharded`."""
     if isinstance(r, DTensor):
         return _wkv_sharded(s, r, k, v, logw, u)
-    t = r.shape[1]
-    chunk = min(SCAN_CHUNK, t)
-    while t % chunk:
-        chunk -= 1
-    outs = []
-    for c in range(0, t, chunk):
-        s, o = _wkv_chunk(s, *(a[:, c:c + chunk] for a in (r, k, v, logw)),
-                          u)
-        outs.append(o)
-    return s, torch.cat(outs, dim=1)
+    return scan_chunks(_wkv_chunk, s, (r, k, v, logw), (u,), SCAN_CHUNK)
 
 
 def _wkv_sharded(s, r, k, v, logw, u):
@@ -193,43 +184,40 @@ def _mix_gathered(s, r, k, v, logw, u):
         [want, out], [(b, h, *s.shape[2:]), (b, t, d)]))
 
 
-def rwkv6_forward(p, x, *, state=None, make_cache=False):
-    """Full-sequence pass, chunk by chunk."""
+def _mix(p, x, x_prev, s):
+    """The time mix of (B,T,D) ``x`` after ``x_prev`` (x shifted right by
+    one token) from state ``s``: its output and the last state.  Where a
+    mesh dim cuts a head, the recurrence runs in :func:`_mix_gathered`."""
     b, t, d = x.shape
     h = d // HEAD_DIM
-    x_prev = torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
     r, k, v, logw, g = _projections(p, x, x_prev)
     u = p["u"][None, :, :, None]
-    s = state if state is not None else \
-        torch.zeros((b, h, HEAD_DIM, HEAD_DIM), dtype=torch.float32,
-                    device=x.device)
     if _split(r):
         r, k, v = (_split_heads(a, h).float() for a in (r, k, v))
         s, out = _wkv(s, r, k, v, _split_heads(logw, h), u)
         out = out.reshape(b, t, d)                           # (B,T,H*dv)
     else:
         s, out = _mix_gathered(s, r.float(), k.float(), v.float(), logw, u)
-    out = _output(p, out, g, x)
+    return _output(p, out, g, x), s
+
+
+def rwkv6_forward(p, x, *, state=None, make_cache=False):
+    """Full-sequence pass, chunk by chunk."""
+    b, t, d = x.shape
+    x_prev = torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
+    s = state if state is not None else \
+        torch.zeros((b, d // HEAD_DIM, HEAD_DIM, HEAD_DIM),
+                    dtype=torch.float32, device=x.device)
+    out, s = _mix(p, x, x_prev, s)
     # decode state = (S, last token) — the token-shift mix needs x_{t-1}
     return out, ((s, x[:, -1, :]) if make_cache else None)
 
 
 def rwkv6_decode(p, x, state_tuple, *, position=None):
-    """One-token step.  ``state_tuple`` = (S, x_prev_token).  Where a mesh
-    dim cuts a head, the token's recurrence runs in
-    :func:`_mix_gathered`."""
+    """One-token step: the forward's recurrence (a chunk of one token)
+    from ``state_tuple`` = (S, x_prev_token), a DTensor's on its local
+    shards as in the forward (:func:`_wkv_sharded`, or
+    :func:`_mix_gathered` where a mesh dim cuts a head)."""
     s, xprev = state_tuple
-    b, _, d = x.shape
-    h = d // HEAD_DIM
-    r, k, v, logw, g = _projections(p, x, xprev[:, None, :])
-    if not _split(r):
-        s_new, out = _mix_gathered(s, r.float(), k.float(), v.float(), logw,
-                                   p["u"][None, :, :, None])
-        return _output(p, out, g, x), (s_new, x[:, 0, :])
-    r, k, v = (_split_heads(a, h).float()[:, 0] for a in (r, k, v))
-    lw = _split_heads(logw, h)[:, 0]
-    kv = k[..., :, None] * v[..., None, :]
-    out = einsum("bhk,bhkv->bhv", r, s + p["u"][None, :, :, None] * kv)
-    s_new = torch.exp(lw)[..., None] * s + kv
-    out = _output(p, out.reshape(b, 1, d), g, x)
+    out, s_new = _mix(p, x, xprev[:, None, :], s)
     return out, (s_new, x[:, 0, :])

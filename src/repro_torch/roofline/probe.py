@@ -5,12 +5,16 @@ The JAX package's ``compiled.cost_analysis()`` counts the body of every
 layer group's body and assembles ``T_step + (G - 1) * T_group + (E - 1) *
 T_enc`` plus an analytic extra for the token-level scans of the RWKV6 and
 RG-LRU blocks.  The port's tracer (:mod:`.trace`) sees every iteration of
-the Python layer loop (one block a layer) and of the recurrences' token
-loops (``models/rwkv6.py``, ``models/rglru.py``): the traced step is
-already the whole, so that correction is the identity
-(``tests/test_torch_roofline.py`` shows a model of G layers traced whole
-equal to G blocks' bodies plus the rest) and has no function here.  What
-stays:
+the Python layer loop (one block a layer), so the layer groups need no
+correction (``tests/test_torch_roofline.py`` shows a model of G layers
+traced whole equal to G blocks' bodies plus the rest).  The recurrences'
+token loops (``models/rwkv6.py``, ``models/rglru.py``) are the port's
+counterpart of ``recurrence_extra``: the tracer runs the first chunk of
+``SCAN_CHUNK`` tokens and counts each of the other ``n - 1`` as that
+chunk's FLOPs and bytes, forward, backward and remat's recompute alike
+(``StepTracer.scan_once``), so the traced step is the whole without
+tracing every token (its terms equal the whole trace's:
+``tests/test_torch_roofline.py``).  What stays:
 
 * the step is traced with ``microbatches=1`` (the same FLOPs); the deltas
   of the deploy step's gradient accumulation, weights re-read and

@@ -30,6 +30,15 @@ per-chip terms.  Its conventions:
   step's resident arguments (parameters, optimizer state, batch) plus
   every storage an op creates, until it is freed.
 
+* **Recurrences** — a token loop (``models/rwkv6.py``, ``models/rglru.py``)
+  is traced one chunk for all (:meth:`StepTracer.scan_once`) where its
+  tensors are the step's fake tensors: the first chunk runs, and the
+  other ``n - 1`` chunks count as that chunk's terms times ``n - 1``,
+  forward, backward and remat's recompute alike; their outputs, and the
+  bytes their autograd graph would keep, are allocations that move
+  nothing.  The terms are the whole trace's (``once=False``), which runs
+  every token.
+
 DTensor's sharding propagation runs each op on global-shape fake tensors
 to learn the output's shape: those ops are not the rank's work and are
 skipped.  On real tensors they are the fake tensors (and on the meta
@@ -180,18 +189,40 @@ def note_collective(op: str, result: torch.Tensor) -> None:
         tracer._coll(op, _nbytes(result))
 
 
+def once_tracer(*tensors):
+    """The active :class:`StepTracer` where it traces a recurrence over
+    ``tensors`` one chunk for all (:meth:`StepTracer.scan_once`): its
+    ``once`` is set and the tensors are its step's fake tensors.  Else
+    None, and the recurrence runs every token.  The tracer is found on the
+    dispatch mode stack, which autograd carries into its backward threads
+    (remat's recompute runs there)."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+    tracer = next((m for m in reversed(_get_current_dispatch_mode_stack())
+                   if isinstance(m, StepTracer)), None)
+    if tracer is None or not tracer.once or tracer.fake_mode is None \
+            or not all(isinstance(t, FakeTensor)
+                       and t.fake_mode is tracer.fake_mode for t in tensors):
+        return None
+    return tracer
+
+
 class StepTracer(TorchDispatchMode):
     """Counts one rank's local work while active (see the module's
     conventions).  ``fake_mode``: the fake mode the step's own tensors
     belong to (None for real tensors); ``resident``: trees of the tensors
     (DTensors: their local shards) alive through the step, the base of
     the peak; ``skip_propagation`` False counts the ops of DTensor's
-    sharding propagation as the rank's work too (a check of the skip)."""
+    sharding propagation as the rank's work too (a check of the skip);
+    ``once`` False traces every token of a recurrence (see
+    :meth:`scan_once`)."""
 
-    def __init__(self, fake_mode=None, resident=(), skip_propagation=True):
+    def __init__(self, fake_mode=None, resident=(), skip_propagation=True,
+                 once=True):
         super().__init__()
         self.fake_mode = fake_mode
         self.skip_propagation = skip_propagation
+        self.once = once
         self.trace = StepTrace()
         self._live = 0
         self._seen: dict[int, int] = {}
@@ -287,3 +318,139 @@ class StepTracer(TorchDispatchMode):
 
     def result(self) -> StepTrace:
         return self.trace
+
+    # -------------------------------------------------------------- #
+    # recurrences, one chunk for all
+    # -------------------------------------------------------------- #
+    def _add(self, terms: StepTrace, k: int) -> None:
+        """``k`` times ``terms``' FLOPs, bytes, ops and collectives."""
+        self.trace.flops += k * terms.flops
+        self.trace.hbm_bytes += k * terms.hbm_bytes
+        self.trace.ops += k * terms.ops
+        for mine, theirs in ((self.trace.coll_by_op, terms.coll_by_op),
+                             (self.trace.dtensor_coll_by_op,
+                              terms.dtensor_coll_by_op)):
+            for op, nbytes in theirs.items():
+                mine[op] = mine.get(op, 0.0) + k * nbytes
+
+    @contextlib.contextmanager
+    def _apart(self):
+        """Count into a fresh :class:`StepTrace` (yielded) while active;
+        the live bytes go on being tracked, and the step's peak is left
+        alone."""
+        saved, self.trace = self.trace, StepTrace()
+        try:
+            yield self.trace
+        finally:
+            self.trace = saved
+
+    def _probe(self, fn, state, xs, consts, chunk: int):
+        """The backward of one chunk of a recurrence as the chunks after
+        the first run it (its state requiring grad), counted apart: with
+        the state's gradient (a middle chunk) and without it (the last
+        chunk, whose state nothing reads), and the bytes its autograd
+        graph keeps beyond its outputs.  Its graph keeps its saved tensors
+        whatever hooks the step has pushed (remat's)."""
+        ins = [state.detach().requires_grad_()]
+        ins += [t[:, :chunk].detach().requires_grad_(t.requires_grad)
+                for t in xs]
+        ins += [t.detach().requires_grad_(t.requires_grad) for t in consts]
+        need = [t for t in ins if t.requires_grad]
+        with torch.autograd.graph.saved_tensors_hooks(lambda t: t,
+                                                      lambda t: t), \
+                torch.enable_grad():
+            live = self._live
+            with self._apart():
+                s, o = fn(*ins)
+            kept = max(0, self._live - live - _nbytes(s) - _nbytes(o))
+            gs, go = torch.empty_like(s), torch.empty_like(o)
+            with self._apart() as mid:
+                torch.autograd.grad([o, s], need, [go, gs], retain_graph=True,
+                                    allow_unused=True)
+            with self._apart() as last:
+                torch.autograd.grad([o], need, [go], allow_unused=True)
+        return (mid, last), kept
+
+    def scan_once(self, fn, state, xs, consts, chunk: int):
+        """``fn(state, *chunk_xs, *consts) -> (state, out)`` over the
+        ``n`` chunks of ``chunk`` tokens of the (B, T, ...) ``xs`` (``n``
+        at least 2), as the whole loop (``models.layers.scan_chunks``)
+        counts it, with one chunk run: the last state and the outputs
+        joined on dim 1.
+
+        The first chunk runs in the step's graph, and its forward's terms
+        count ``n - 1`` more times.  Where autograd records, a probe
+        (:meth:`_probe`) measures a later chunk's backward apart, counted
+        ``n - 1`` times when the skipped chunks' node (:class:`_Skipped`)
+        is reached on the way back.  That node takes the skipped chunks'
+        slices of ``xs`` and a ``consts`` entry each, as their ``fn`` calls
+        would, so what autograd does around the chunks (the slices'
+        gradients, the sums of a shared input's) is the whole loop's; it
+        gives empty outputs and gradients, and keeps ``n - 1`` times the
+        probe's kept bytes as a saved tensor until its backward (remat
+        drops it in the first forward, as it drops the chunks' own)."""
+        t = xs[0].shape[1]
+        n = t // chunk
+        bwd, kept = (StepTrace(), StepTrace()), 0
+        if torch.is_grad_enabled() and any(
+                x.requires_grad for x in (state, *xs, *consts)):
+            bwd, kept = self._probe(fn, state, xs, consts, chunk)
+        before = dataclasses.replace(
+            self.trace, coll_by_op=dict(self.trace.coll_by_op),
+            dtensor_coll_by_op=dict(self.trace.dtensor_coll_by_op))
+        s, o = fn(state, *(x[:, :chunk] for x in xs), *consts)
+        self._add(_since(self.trace, before), n - 1)
+        rest = [x[:, c:c + chunk] for c in range(chunk, t, chunk)
+                for x in xs]
+        like = ((s.shape, s.dtype), (o.shape, o.dtype))
+        res = _Skipped.apply(self, (n, bwd, kept, like), s, *rest,
+                             *(consts * (n - 1)))
+        return res[0], torch.cat([o, *res[1:]], dim=1)
+
+
+def _since(now: StepTrace, before: StepTrace) -> StepTrace:
+    """The FLOPs, bytes, ops and collectives counted from ``before`` to
+    ``now``."""
+    def grown(a: dict, b: dict) -> dict:
+        return {k: v - b.get(k, 0.0) for k, v in a.items()
+                if v != b.get(k, 0.0)}
+    return StepTrace(
+        flops=now.flops - before.flops,
+        hbm_bytes=now.hbm_bytes - before.hbm_bytes,
+        ops=now.ops - before.ops,
+        coll_by_op=grown(now.coll_by_op, before.coll_by_op),
+        dtensor_coll_by_op=grown(now.dtensor_coll_by_op,
+                                 before.dtensor_coll_by_op))
+
+
+class _Skipped(torch.autograd.Function):
+    """The chunks :meth:`StepTracer.scan_once` does not run: empty outputs
+    (the last state, then each chunk's output), and on the way back empty
+    gradients for its inputs and the probe's backward terms counted once
+    a skipped chunk (the last one's without the state's gradient where the
+    last state has none)."""
+
+    @staticmethod
+    def forward(ctx, tracer, plan, s, *inputs):
+        n, bwd, kept, ((s_shape, s_dtype), (o_shape, o_dtype)) = plan
+        ctx.tracer, ctx.n, ctx.bwd = tracer, n, bwd
+        ctx.like = [(t.shape, t.dtype) for t in (s, *inputs)]
+        ctx.set_materialize_grads(False)
+        dev = s.device
+        ctx.save_for_backward(torch.empty(((n - 1) * kept,),
+                                          dtype=torch.uint8, device=dev))
+        return (torch.empty(s_shape, dtype=s_dtype, device=dev),
+                *(torch.empty(o_shape, dtype=o_dtype, device=dev)
+                  for _ in range(n - 1)))
+
+    @staticmethod
+    def backward(ctx, g_state, *g_outs):
+        ctx.saved_tensors                     # the kept bytes, freed here
+        mid, last = ctx.bwd
+        ctx.tracer._add(mid, ctx.n - 2)
+        ctx.tracer._add(last if g_state is None else mid, 1)
+        dev = next(g.device for g in (g_state, *g_outs) if g is not None)
+        return (None, None, *(
+            torch.empty(shape, dtype=dtype, device=dev) if need else None
+            for (shape, dtype), need in zip(ctx.like,
+                                            ctx.needs_input_grad[2:])))

@@ -12,7 +12,10 @@ with its recurrence forced through the region that gathers whole heads
 and the batch is 8 x 16 tokens from numpy seed 2 with three labels
 masked (``tests/torch_dist.py::family_inputs``).  Each family's serving
 path (a prefill of the batch's tokens and two decode steps) is held the
-same way on both meshes.
+same way on both meshes, and so is that of every family with an attention
+cache under the ``--opt`` plan (``optimize_config``: the decode caches
+written by the scatter route, ``opt_scatter_cache``, on each rank's local
+shard), against the unsharded plain serving path, in f32.
 
 Two jobs, each its own module-scoped run of 8 ranks that makes every
 sharded step and, one arch a rank, the unsharded ones:
@@ -108,6 +111,13 @@ CASES = [(a, a, None, ("4x2", "2x4")) for a in FAMILIES] + [
     ("qwen3-8b:opt", "qwen3-8b", "opt", ("2x4",)),
     ("qwen3-8b:opt_seq", "qwen3-8b", "opt_seq", ("2x4",)),
     ("rwkv6-1.6b:gathered", "rwkv6-1.6b", "gathered", ("4x2",))]
+#: the families with an attention cache, served under the ``--opt`` plan
+#: (f32 job only) on both meshes, and qwen3-8b's "opt_seq" plan on 2x4,
+#: whose decode shards the cache over the sequence
+OPT_SERVED = ("qwen3-8b", "deepseek-v2-236b", "recurrentgemma-9b",
+              "whisper-medium", "granite-moe-3b-a800m")
+SERVED_OPT = [(m, f"{a}:opt") for a in OPT_SERVED for m in ("4x2", "2x4")] \
+    + [("2x4", "qwen3-8b:opt_seq")]
 
 JOB = """
 import dataclasses, itertools, unittest.mock, torch
@@ -122,7 +132,7 @@ from torch.distributed.tensor import DTensor
 from repro_torch.configs import ARCHS, reduce_config
 from repro_torch.distributed import sharding as shd
 from repro_torch.launch.steps import optimize_config
-from repro_torch.models import build_model, rwkv6, transformer
+from repro_torch.models import attention, build_model, rwkv6, transformer
 
 records = None          # RWKV-6's sublayer calls, while a list
 names = {}              # id of a parameter or module -> its name
@@ -169,6 +179,18 @@ def output(p, out, g, x):
 
 
 rwkv6._output = output
+ROWS = {}               # decode cache writes by route, while serving
+
+
+def counted(fn, key):
+    def wrapped(*args, **kw):
+        ROWS[key] = ROWS.get(key, 0) + 1
+        return fn(*args, **kw)
+    return wrapped
+
+
+attention._insert_row = counted(attention._insert_row, "blend")
+attention._scatter_row = counted(attention._scatter_row, "scatter")
 SPLIT = rwkv6._split
 EINSUM = torch.einsum
 
@@ -270,19 +292,32 @@ def step(case, mesh, order=None):
     return out
 
 
-def serve(case, mesh):
+def serve(case, mesh, start=16, census=None):
     # the last position's logits of a prefill of the batch's tokens (and
-    # frames) and of two decode steps after it, whole
+    # frames) and of two decode steps after it, at positions start and
+    # start + 1, whole (the prefill's cache holds 16 rows: a decode step
+    # past them writes no row); ``census`` sees the prefill and the steps
     m, batch = model(case, mesh)
     batch = {k: v for k, v in batch.items() if k != "labels"}
-    with shd.use_mesh(mesh), torch.no_grad():
+    with shd.use_mesh(mesh), torch.no_grad(), census or Census():
         logits, caches, enc = m.prefill(placed(batch, mesh))
         outs = [logits]
         for i in range(2):
             tok = placed({"t": batch["tokens"][:, i:i + 1]}, mesh)["t"]
-            logits, caches = m.decode_step(caches, tok, 16 + i, enc_out=enc)
+            logits, caches = m.decode_step(caches, tok, start + i,
+                                           enc_out=enc)
             outs.append(logits)
     return [whole(o).float() for o in outs]
+
+
+def census_serve(case, mesh, start=16):
+    # serve's logits, with the dtypes its ops saw and its cache writes by
+    # route (the one-hot blend, the scatter)
+    census = Census()
+    ROWS.clear()
+    logits = serve(case, mesh, start, census)
+    return {"logits": logits, "dtypes": sorted(census.dtypes),
+            "rows": dict(ROWS)}
 
 
 for key in ("4x2", "2x4"):
@@ -293,13 +328,21 @@ for key in ("4x2", "2x4"):
     out["serve", key] = {case: serve(case, mesh) for case, meshes in
                          inputs["meshes"].items()
                          if key in meshes and ":opt" not in case}
+    if inputs["f32"]:
+        out["serve_opt", key] = {case: census_serve(case, mesh, 15)
+                                 for m, case in inputs["serve_opt"]
+                                 if m == key}
 # the unsharded steps, one arch a rank (no collective runs in them), and
 # in bf16 RWKV-6's with its row-parallel products in every order of n
 # partials (the first two commute)
 mine = [a for i, a in enumerate(sorted(inputs["families"]))
         if i % world == rank]
 out["one"] = {arch: step(arch, None) for arch in mine}
-out["serve", "one"] = {arch: serve(arch, None) for arch in mine}
+out["serve", "one"] = {arch: census_serve(arch, None) for arch in mine}
+out["serve_at_15", "one"] = {
+    arch: census_serve(arch, None, 15) for arch in mine
+    if inputs["f32"] and any(c.split(":")[0] == arch
+                             for _, c in inputs["serve_opt"])}
 out["orders"] = {}
 if not inputs["f32"] and "rwkv6-1.6b" in mine:
     for n in inputs["orders"]:
@@ -315,20 +358,26 @@ def _run(tmp, f32: bool) -> dict:
     ordered steps, gathered from the ranks."""
     archs = sorted({a for _, a, _, _ in CASES})
     torch.save({"f32": f32,
-                "cases": {c: (a, plan) for c, a, plan, _ in CASES},
+                "cases": {**{f"{a}:opt": (a, "opt") for a in OPT_SERVED},
+                          **{c: (a, plan) for c, a, plan, _ in CASES}},
                 "meshes": {c: ms for c, _, _, ms in CASES},
+                "serve_opt": SERVED_OPT,
                 "orders": sorted(set(ORDERS.values())),
                 "families": {a: family_inputs(a) for a in archs}},
                tmp / "inputs.pt")
     outs = run_ranks(JOB, 8, tmp)
-    res = {"one": {}, "serve_one": {}, "orders": {}, "ranks": outs}
+    res = {"one": {}, "serve_one": {}, "serve_at_15": {}, "orders": {},
+           "ranks": outs}
     for o in outs:
         res["one"].update(o["one"])
-        res["serve_one"].update(o["serve", "one"])
+        res["serve_one"].update({arch: run["logits"] for arch, run
+                                 in o["serve", "one"].items()})
+        res["serve_at_15"].update(o["serve_at_15", "one"])
         res["orders"].update(o["orders"])
     for key in ("4x2", "2x4"):
         res[key] = outs[0][key]
         res["serve_" + key] = outs[0]["serve", key]
+        res["serve_opt_" + key] = outs[0].get(("serve_opt", key), {})
     return res
 
 
@@ -378,6 +427,32 @@ def test_the_sharded_prefill_and_decode_equal_the_unsharded_ones_in_f32(
     for i, got in enumerate(f32["serve_" + mesh][case]):
         err = rel_l2(got.numpy(), want[i].numpy())
         assert err <= EXACT_LOGITS, (i, err)
+
+
+@pytest.mark.parametrize("mesh,case", SERVED_OPT)
+def test_the_opt_plans_sharded_serving_equals_the_unsharded_plain_one_in_f32(
+        f32, mesh, case):
+    """Check (a) on the ``--opt`` plan's serving path, its decode steps
+    at positions 15 (a row of the prefill's cache, rewritten) and 16 (past
+    it: no row written): no bf16 op, the prefill's and both decode steps'
+    logits within ``EXACT_LOGITS`` rel-L2 of the unsharded plain route's
+    at the same positions, and every decode cache write taken by the
+    scatter route on the ranks' local shards (the one-hot blend never
+    called), where the plain route blends.  Under ``qwen3-8b:opt_seq`` on
+    2x4 the decode cache is sharded over the sequence, so only the rank
+    that holds row 15 writes it."""
+    got = f32["serve_opt_" + mesh][case]
+    assert "torch.bfloat16" not in got["dtypes"], got["dtypes"]
+    assert "torch.float32" in got["dtypes"]
+    want = f32["serve_at_15"][_arch(case)]["logits"]
+    assert len(got["logits"]) == len(want) == 3
+    for i, logits in enumerate(got["logits"]):
+        err = rel_l2(logits.numpy(), want[i].numpy())
+        assert err <= EXACT_LOGITS, (i, err)
+    plain = f32["serve_at_15"][_arch(case)]["rows"]
+    assert plain.get("blend", 0) > 0 and plain.get("scatter", 0) == 0, plain
+    assert got["rows"].get("scatter", 0) == plain["blend"], got["rows"]
+    assert got["rows"].get("blend", 0) == 0, got["rows"]
 
 
 def _unsharded_distances(bf16, f32, mesh: str, case: str) -> dict:
@@ -579,6 +654,12 @@ def _report(f32, bf16) -> None:
         print(f"{mesh} {case} served: f32 {max(f):.2e}; bf16 sharded / "
               f"unsharded from f32 " +
               ", ".join(f"{s:.4f}/{u:.4f}" for s, u in b))
+    for mesh, case in SERVED_OPT:
+        got = f32["serve_opt_" + mesh][case]
+        f = [rel_l2(g.numpy(), e.numpy()) for g, e in
+             zip(got["logits"], f32["serve_at_15"][_arch(case)]["logits"])]
+        print(f"{mesh} {case} served: f32 {max(f):.2e}, cache writes "
+              f"{got['rows']}")
     exact = f32["one"]["rwkv6-1.6b"]["grads"]
     for order, run in sorted(bf16["orders"].items()):
         print(f"rwkv6-1.6b order {order}: worst " + str(max(

@@ -211,11 +211,58 @@ def test_the_clis_json_has_the_jax_keys(tmp_path):
     assert got["mesh"] == "2x2" and got["flops_per_chip"] > 0
 
 
+@pytest.mark.parametrize("jobs", [1, 2])
+def test_all_passes_audit_and_the_plan_to_every_cell(monkeypatch, tmp_path,
+                                                     jobs):
+    """``--all --audit --opt --layers 1`` runs every cell of ``all_cells``
+    with the audit, the ``--opt`` plan and the depth cut: in this process
+    (``--jobs 1``: ``run_cell(..., audit=True, optimized=True,
+    layers=1)``) and in one subprocess a cell (``--jobs 2``: each command
+    line with ``--audit``, ``--opt`` and ``--layers 1``)."""
+    from repro_torch.launch import dryrun
+    ran, cmds = [], []
+
+    def run_cell(arch, shape, multi_pod, out_dir, **kw):
+        ran.append(((arch, shape, multi_pod), kw))
+
+    class Popen:
+        returncode = 0
+
+        def __init__(self, cmd):
+            cmds.append(cmd)
+
+        def poll(self):
+            return 0
+
+    monkeypatch.setattr(dryrun, "run_cell", run_cell)
+    monkeypatch.setattr(dryrun.subprocess, "Popen", Popen)
+    monkeypatch.setattr(dryrun.time, "sleep", lambda s: None)
+    dryrun.main(["--all", "--audit", "--opt", "--layers", "1", "--jobs",
+                 str(jobs), "--out", str(tmp_path)])
+    cells = [(a, s, False) for a, s in dryrun.all_cells()]
+    if jobs == 1:
+        assert cmds == [] and [c for c, _ in ran] == cells
+        for _, kw in ran:
+            assert kw["audit"] is True and kw["optimized"] is True
+            assert kw["layers"] == 1
+    else:
+        assert ran == [] and len(cmds) == len(cells)
+        for cmd, (arch, shape, _) in zip(cmds, cells):
+            assert cmd[cmd.index("--arch") + 1] == arch
+            assert cmd[cmd.index("--shape") + 1] == shape
+            assert "--audit" in cmd and "--opt" in cmd
+            assert cmd[cmd.index("--layers") + 1] == "1"
+
+
 def test_chip_smokes_dist_phase_on_the_host():
     """``chip_smoke.dist_check`` on the CPU (gloo's one-rank mesh, the
-    reduced qwen3-8b, plain attention, the dry run at one layer, and its
-    two other cells, deepseek-coder-33b under ``--opt`` and
-    deepseek-v2-236b, audited clean)."""
+    reduced qwen3-8b, plain attention; (b)'s prefill and two decode steps
+    under the ``--opt`` plan within ``LM_TOL`` of the unsharded plain
+    model's; the dry run at one layer, and its six other cells,
+    deepseek-coder-33b's ``train_4k --opt``, deepseek-v2-236b's
+    ``train_4k`` and ``decode_32k``, qwen3-8b's ``decode_32k --opt``,
+    rwkv6-1.6b's ``long_500k --multi-pod`` and ``prefill_32k``, audited
+    clean)."""
     out = _run("""
     import dataclasses, json
     import chip_smoke as cs
@@ -233,6 +280,7 @@ def test_chip_smokes_dist_phase_on_the_host():
                             [(cs.DRYRUN_ARGS, 1), *cs.DRYRUN_MORE]))
     print(json.dumps({"fails": fails, "backend": res["backend"],
                       "step": res["step"], "prefill": res["prefill"],
+                      "opt": res["opt_decode"], "tol": cs.LM_TOL,
                       "dry": res["dryrun"]["json"]["mesh"],
                       "more": [(r["json"]["arch"], r["json"]["mesh"],
                                 r["json"]["collective_audit"])
@@ -244,7 +292,15 @@ def test_chip_smokes_dist_phase_on_the_host():
     assert out["more"] == [
         [arch, mesh, {"dtensor_coll_by_op": {}, "shard_dim_alltoall": 0}]
         for arch, mesh in (("deepseek-coder-33b", "16x16.opt"),
-                           ("deepseek-v2-236b", "16x16"))]
+                           ("deepseek-v2-236b", "16x16"),
+                           ("qwen3-8b", "16x16.opt"),
+                           ("deepseek-v2-236b", "16x16"),
+                           ("rwkv6-1.6b", "2x16x16"),
+                           ("rwkv6-1.6b", "16x16"))]
+    assert out["opt"]["steps"] == 2 and len(out["opt"]["decode_rel_l2"]) == 2
+    assert max(out["opt"]["decode_rel_l2"]) <= out["tol"]
+    assert out["opt"]["prefill_rel_l2"] <= out["tol"]
+    assert out["opt"]["launches"] == {"flash_attention": 0}
     assert out["step"]["loss_rel"] <= 1e-6
     assert out["step"]["routes"] == {"plain": 2}
     assert out["prefill"]["launches"] == {"flash_attention": 0}
