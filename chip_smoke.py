@@ -249,6 +249,32 @@ Phases, each timed:
                (``start_dry_runs``)
                (``dist_launches`` and ``dist_opt_launches`` in
                attention's line).
+14. families — the nine other model families (``families_check``,
+               ``FAMILIES``), each at its published widths, cut in depth
+               only: (a) served by ``ServingEngine`` (4 slots, 8 new
+               tokens a request) at granite-moe-3b-a800m 32 layers,
+               deepseek-v2-236b 2, deepseek-coder-33b, qwen3-14b and
+               internvl2-26b 4, gemma3-27b 6, recurrentgemma-9b 3,
+               rwkv6-1.6b 4 and whisper-medium 24 + 24, each family's
+               counts set to 0 just before and read just after: the flash
+               kernel once a layer for each prompt it takes (512 and 2048
+               tokens at GQA groups 3, 7, 5, 6 and 1), nothing else, the
+               plain route as ``attention_routes`` says; the 2048-token
+               prompt's logits by both routes within ``LM_TOL``; and
+               internvl2's vision prefix (256 patches, 1792 tokens) by
+               ``Model.forward(make_cache=True)`` on the kernel; (b) one
+               ``make_train_step`` of one 2048-position sequence with remat
+               (whisper's frames, internvl2's patches) at 8, 2, 2, 2, 1, 3,
+               4 and 24 + 24 layers (deepseek-v2-236b none: one layer's
+               state is 67 GiB): no launch, loss and grad norm finite, the
+               first nll not below ln V - 1; (d) every arch's reduced
+               config, a prefill, two decode steps fed the host's greedy
+               tokens and a train step, card against host on the same
+               weights and inputs, in f32 (``torch.bfloat16`` aliased in a
+               process of its own; the host's runs started beside the dry
+               runs) within ``REDUCED_F32_TOL`` and in bf16 within
+               ``ROUND_FACTOR`` x the host's bf16-to-f32 distance +
+               ``ROUND_TOL`` (``families_launches`` in attention's line).
 
 Prints the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
 line.  A kernel's ``launches`` counts its wrapper's calls on its path;
@@ -263,6 +289,7 @@ from __future__ import annotations
 
 import argparse
 import atexit
+import collections
 import contextlib
 import json
 import os
@@ -1454,37 +1481,79 @@ LM_COMPARE = 2048
 LM_TOL = 5e-2
 
 
+def fresh_peak(dev) -> float | None:
+    """On the card: the tensors no name holds any more freed (a model's
+    parameters can sit in a reference cycle until the collector runs),
+    the allocator's cache emptied and its peak reset; returns the GiB
+    still allocated, which the next peak includes.  None on the host."""
+    import gc
+
+    import torch
+    if dev.type != "cuda":
+        return None
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    return torch.cuda.memory_allocated(dev) / 2.0 ** 30
+
+
+def attention_routes(cfg, seq: int) -> dict[str, int]:
+    """The prefill of a ``seq``-token prompt by ``cfg``: how many of its
+    attention calls that :data:`~repro_torch.models.attention.ROUTES`
+    counts take the flash kernel and how many the plain route, by
+    ``prefill_route``'s rules on the card (a causal self-attention layer
+    with no window, a head dim the kernel is built for, and a shape some
+    config of the ``flash_attention_h100`` space fits).  The encoder's
+    layers (not causal) and the cross-attention (keys of the encoder) run
+    plain; MLA's attention and the recurrences are not counted there."""
+    from repro_torch.kernels.attention import kernel as fkernel
+    from repro_torch.kernels.attention import ops as fops
+    from repro_torch.kernels.attention.space import build_space
+    from repro_torch.kernels.common import config_at
+    specs = [cfg.pattern[i % len(cfg.pattern)] for i in range(cfg.n_layers)]
+    attn = [s for s in specs if s.kind == "attn"]
+    fits = cfg.d_head in fkernel.HEAD_DIMS and config_at(
+        build_space, {"hq": cfg.n_heads, "hkv": max(1, cfg.n_kv_heads),
+                      "tq": seq, "tk": seq, "d": cfg.d_head},
+        fops.DEFAULT_CONFIG, fops.SEMANTIC) is not None
+    kernel = sum(1 for s in attn if not s.window) if fits else 0
+    return {"kernel": kernel, "plain": len(attn) - kernel
+            + cfg.n_enc_layers + sum(1 for s in specs if s.cross)}
+
+
 def lm_check(db_dir, smi: str, counts, zero_counts, failures: list[str], *,
              cfg=None, device: str = "cuda",
              kernel_prompts=LM_KERNEL_PROMPTS, plain_prompts=LM_PLAIN_PROMPTS,
-             compare: int = LM_COMPARE, max_len: int = LM_MAX_LEN,
-             want_tier: str = "exact") -> dict:
+             compare: int | None = LM_COMPARE, max_len: int = LM_MAX_LEN,
+             new_tokens: int = LM_NEW, want_tier: str = "exact",
+             tag: str = "lm") -> dict:
     """The LM path: ``cfg`` (default ``LM_ARCH`` at full width and depth)
     made on ``device`` from seed 0 (``Model.init``), served by
     ``ServingEngine`` planned from the find-DB at ``db_dir`` (the servedb
     phase's snapshot, whose attention entry is this model's
-    ``attention_shape`` at ``max_len``: tier ``want_tier``).  The counts
-    (``counts()``: each kernel's op launches) are set to 0 just before the
-    requests are served and read just after: attention must have launched
-    once a layer for each prompt in ``kernel_prompts`` and nothing else
-    any time, and the plain route run once a layer for each of
-    ``plain_prompts``.  Every request completes with ``LM_NEW`` tokens.
-    Then, outside the counts, the ``compare``-token prompt's last logits by
-    the kernel route against the plain one, within ``LM_TOL``; their
-    argmax agreement is reported, not required (random weights give near
-    ties).  Prints each number beside ``smi``; returns what it measured."""
+    ``attention_shape`` at ``max_len``: tier ``want_tier``; None: no DB,
+    tier ``default``).  An encoder-decoder's requests carry
+    ``ENC_OUT_LEN`` frames, as the launcher's.  The counts (``counts()``:
+    each kernel's op launches) are set to 0 just before the requests are
+    served and read just after: attention must have launched once a layer
+    that takes it (:func:`attention_routes`) for each prompt in
+    ``kernel_prompts`` and nothing else any time, and the plain route run
+    as :func:`attention_routes` says for every prompt (a prompt of
+    ``plain_prompts`` takes no kernel) and once a cross-attention layer a
+    decode step.  Every request completes with ``new_tokens`` tokens.
+    Then, outside the counts and where ``compare`` names a prompt, that
+    prompt's last logits by the kernel route against the plain one,
+    within ``LM_TOL``; their argmax agreement is reported, not required
+    (random weights give near ties).  Failures are prefixed with ``tag``.
+    Prints each number beside ``smi``; returns what it measured."""
     import numpy as np
     import torch
 
     from repro_torch.configs import ARCHS
-    from repro_torch.kernels.attention import ops as fops
-    from repro_torch.kernels.attention.ref import mha_reference
     from repro_torch.models import build_model
-    from repro_torch.models.attention import (ROUTES, _mask_bias, _sdpa,
-                                              admitted_config)
-    from repro_torch.quickstart import rel_l2, tolerance
-    from repro_torch.serve.decode import (FLASH, Request, ServeConfig,
-                                          ServingEngine)
+    from repro_torch.models.attention import ROUTES
+    from repro_torch.serve.decode import (ENC_OUT_LEN, FLASH, Request,
+                                          ServeConfig, ServingEngine)
     t_phase = time.perf_counter()
     cfg = cfg or ARCHS[LM_ARCH]
     dev = torch.device(device)
@@ -1494,27 +1563,30 @@ def lm_check(db_dir, smi: str, counts, zero_counts, failures: list[str], *,
         if cuda:
             torch.cuda.synchronize(dev)
 
-    if cuda:
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(dev)
+    gib = 2.0 ** 30
+    base_gib = fresh_peak(dev)
     t0 = time.perf_counter()
     model = build_model(cfg).init(0, dev)
     sync()
     init_s = time.perf_counter() - t0
     engine = ServingEngine(model, ServeConfig(
-        n_slots=LM_SLOTS, max_len=max_len, max_new_tokens=LM_NEW,
-        servedb=str(db_dir)))
+        n_slots=LM_SLOTS, max_len=max_len, max_new_tokens=new_tokens,
+        servedb=None if db_dir is None else str(db_dir)))
     plan = engine.kernel_plan[FLASH]
-    gib = 2.0 ** 30
     param_gib = sum(p.numel() * p.element_size()
                     for p in model.parameters()) / gib
     kv_gib = sum(t.numel() * t.element_size() for layer in engine.cache
-                 for t in layer["attn"].values()) / gib
+                 for part in layer.values()
+                 for t in (part.values() if isinstance(part, dict)
+                           else part)) / gib
     n_params = sum(p.numel() for p in model.parameters())
     prompts = (*kernel_prompts, *plain_prompts)
     rng = np.random.default_rng(0)
     reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab, size=n)
-                    .astype(np.int32)) for i, n in enumerate(prompts)]
+                    .astype(np.int32), frames=rng.standard_normal(
+                        (ENC_OUT_LEN, cfg.d_model)).astype(np.float32)
+                    if cfg.frontend == "audio" else None)
+            for i, n in enumerate(prompts)]
     for r in reqs:
         engine.submit(r)
     sync()
@@ -1529,98 +1601,55 @@ def lm_check(db_dir, smi: str, counts, zero_counts, failures: list[str], *,
 
     tokens = sum(len(c.tokens) for c in done)
     decode_ms = statistics.median(engine.decode_ms)
-    n = cfg.n_layers
+    # the kernel takes the kernel prompts on the card; the host runs every
+    # prompt on the plain route
+    kernel_at = [cuda and i < len(kernel_prompts)
+                 for i in range(len(prompts))]
+    split = [attention_routes(cfg, n) for n in prompts]
     want = {name: 0 for name in launches}
-    want["flash_attention"] = n * len(kernel_prompts)
+    want["flash_attention"] = sum(r["kernel"] for r, k in zip(split,
+                                                              kernel_at) if k)
+    want_plain = sum(r["plain"] + (0 if k else r["kernel"])
+                     for r, k in zip(split, kernel_at)) \
+        + engine.steps * sum(1 for i in range(cfg.n_layers)
+                             if cfg.pattern[i % len(cfg.pattern)].cross)
     routed = [p["route"] for p in sorted(engine.prefills,
                                          key=lambda p: p["uid"])]
-    failures.extend(f"lm: {msg}" for ok, msg in [
+    failures.extend(f"{tag}: {msg}" for ok, msg in [
         (sorted(c.uid for c in done) == list(range(len(reqs))),
          f"completed {sorted(c.uid for c in done)} of {len(reqs)}"),
-        (all(len(c.tokens) == LM_NEW for c in done),
+        (all(len(c.tokens) == new_tokens for c in done),
          f"tokens per request {[len(c.tokens) for c in done]}"),
         (launches == want, f"launches {launches}, want {want}"),
-        (routes.get("plain", 0) == n * len(plain_prompts),
-         f"plain route {routes.get('plain', 0)}, want "
-         f"{n * len(plain_prompts)}"),
+        (routes.get("plain", 0) == want_plain,
+         f"plain route {routes.get('plain', 0)}, want {want_plain}"),
         (routes.get("kernel:plan", 0) + routes.get("kernel:resolved", 0)
          == want["flash_attention"], f"kernel route {routes}"),
-        (routed == ["kernel"] * len(kernel_prompts)
-         + ["plain"] * len(plain_prompts), f"prefill routes {routed}"),
+        (routed == ["kernel" if k else "plain" for k in kernel_at],
+         f"prefill routes {routed}"),
         (plan.tier == want_tier, f"plan tier {plan.tier}, want {want_tier}"),
     ] if not ok)
 
-    # the two routes on one prompt, outside the counted run: the kernel
-    # under the plan's config and under the op's own, against the plain
-    # route; then one attention call of the model's heads at that length
-    # on seeded q, k, v, each route against the f32 oracle
-    plain = model.with_attention_impl("plain")
-    batch = {"tokens": torch.as_tensor(
-        reqs[prompts.index(compare)].prompt[None].astype(np.int64),
-        device=dev)}
-    cmp = {}
-    for name, m, kc in (("kernel", model, engine.kernel_config(FLASH)),
-                        ("kernel_own", model, None),
-                        ("plain", plain, None)):
-        sync()
-        before = ROUTES["plain"]
-        t0 = time.perf_counter()
-        logits, _, _ = m.prefill(batch, kernel_config=kc)
-        sync()
-        cmp[name] = (logits[0].float(), (time.perf_counter() - t0) * 1e3)
-    plain_routed = ROUTES["plain"] - before
-    err = rel_l2(cmp["kernel"][0], cmp["plain"][0])
-    err_own = rel_l2(cmp["kernel_own"][0], cmp["plain"][0])
-    agree = int(cmp["kernel"][0].argmax()) == int(cmp["plain"][0].argmax())
-    for name, e in (("plan's config", err), ("op's own config", err_own)):
-        if not e <= LM_TOL:
-            failures.append(f"lm: kernel ({name}) vs plain route rel_l2 "
-                            f"{e:.3e} > {LM_TOL:g} at {compare} tokens")
-    if plain_routed != n:
-        failures.append("lm: the plain model's prefill took the kernel")
-    gen = torch.Generator(dev).manual_seed(7)
-    qkv = [torch.randn(h, compare, cfg.d_head, generator=gen, device=dev)
-           .to(torch.bfloat16) for h in (cfg.n_heads, cfg.n_kv_heads,
-                                         cfg.n_kv_heads)]
-    oracle = mha_reference(*(t.float() for t in qkv),
-                           scale=cfg.d_head ** -0.5)
-    bias = _mask_bias(compare, compare, 0, None, True, dev)
-    one = {"kernel": fops.attention(*qkv, config=admitted_config(
-               *qkv, engine.kernel_config(FLASH))),
-           "kernel_own": fops.attention(*qkv),
-           "plain": _sdpa(*(t.transpose(0, 1)[None] for t in qkv),
-                          bias)[0].transpose(0, 1)}
-    one_call = {name: rel_l2(o.float(), oracle) for name, o in one.items()}
-    for name, plan_cfg in (("kernel", engine.kernel_config(FLASH)),
-                           ("kernel_own", fops.DEFAULT_CONFIG),
-                           ("plain", {})):
-        tol = tolerance("flash_attention_h100", plan_cfg)
-        if not one_call[name] <= tol:
-            failures.append(f"lm: one attention call by {name} misses the "
-                            f"f32 oracle: rel_l2 {one_call[name]:.3e} > "
-                            f"{tol:g}")
-
+    cmp = None if compare is None else compare_routes(
+        model, engine.kernel_config(FLASH), reqs[prompts.index(compare)],
+        sync, failures, tag)
     out = {
-        "arch": cfg.name, "layers": n, "d_model": cfg.d_model,
+        "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
         "params": n_params, "param_gib": param_gib, "kv_cache_gib": kv_gib,
+        "allocated_before_gib": base_gib,
         "max_memory_allocated_gib": peak_gib, "init_s": init_s,
         "plan_tier": plan.tier, "plan_config": dict(plan.config),
         "prefills": engine.prefills, "decode_steps": engine.steps,
         "decode_ms_median": decode_ms, "generated_tokens": tokens,
         "run_s": run_s, "tokens_per_s": tokens / run_s,
         "launches": launches["flash_attention"], "routes": routes,
-        "compare": {"prompt": compare, "rel_l2": err,
-                    "rel_l2_own_config": err_own, "tolerance": LM_TOL,
-                    "argmax_agrees": agree,
-                    "kernel_prefill_ms": cmp["kernel"][1],
-                    "kernel_own_prefill_ms": cmp["kernel_own"][1],
-                    "plain_prefill_ms": cmp["plain"][1],
-                    "one_call_vs_f32_oracle": one_call},
-        "nvidia_smi": smi,
+        "compare": cmp, "nvidia_smi": smi,
     }
-    print(f"  {cfg.name}: {n} layers, d {cfg.d_model}, {n_params / 1e9:.3f} "
-          f"B parameters, {param_gib:.2f} GiB; KV cache {kv_gib:.2f} GiB "
-          f"({LM_SLOTS} slots x {max_len}); max_memory_allocated "
+    print(f"  {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{n_params / 1e9:.3f} B parameters, {param_gib:.2f} GiB; cache "
+          f"{kv_gib:.2f} GiB ({LM_SLOTS} slots x {max_len}); allocated "
+          f"before {base_gib if base_gib is None else round(base_gib, 2)} "
+          f"GiB, max_memory_allocated "
           f"{peak_gib if peak_gib is None else round(peak_gib, 2)} GiB; "
           f"init {init_s:.2f} s ({smi})")
     print(f"  plan {FLASH} at {plan.shape}: tier {plan.tier}, "
@@ -1632,19 +1661,182 @@ def lm_check(db_dir, smi: str, counts, zero_counts, failures: list[str], *,
           f"steps: median step {decode_ms:.2f} ms, {tokens / run_s:.1f} "
           f"tokens/s over the run's {run_s:.2f} s ({smi})")
     print(f"  attention launches {launches['flash_attention']} (routes "
-          f"{routes}); kernel vs plain route at {compare} tokens: rel_l2 "
-          f"{err:.3e} under the plan's config, {err_own:.3e} under the op's "
-          f"own (tolerance {LM_TOL:g}), argmax "
-          f"{'agrees' if agree else 'differs'}; prefill "
-          f"{cmp['kernel'][1]:.2f} / {cmp['kernel_own'][1]:.2f} ms against "
-          f"{cmp['plain'][1]:.2f} ms ({smi})")
-    print("  one attention call at that length, rel_l2 to the f32 oracle: "
-          + ", ".join(f"{k} {v:.3e}" for k, v in one_call.items()))
-    del engine, model, plain, cmp, one, qkv, oracle
+          f"{routes})")
+    if cmp is not None:
+        pin = " with the plain route's experts pinned to the kernel's" \
+            if cmp["routing_pinned"] else ""
+        control = cmp["control_rel_l2"]
+        print(f"  kernel vs plain route at {compare} tokens: rel_l2 "
+              f"{cmp['rel_l2']:.3e} under the plan's config{pin}, "
+              f"{cmp['rel_l2_unpinned']:.3e} unpinned, "
+              f"{cmp['rel_l2_own_config']:.3e} under the op's own "
+              f"(tolerance {LM_TOL:g}); the plan's config against its "
+              f"other block_kv "
+              f"{'not admitted' if control is None else f'{control:.3e}'}"
+              + ("; tokens whose experts differ between the routes, by "
+                 "layer: " + " ".join(f"{f:.4f}" for f in cmp["expert_flips"])
+                 if cmp["expert_flips"] else "") + "; argmax "
+              f"{'agrees' if cmp['argmax_agrees'] else 'differs'}; prefill "
+              f"{cmp['kernel_prefill_ms']:.2f} / "
+              f"{cmp['kernel_own_prefill_ms']:.2f} ms against "
+              f"{cmp['plain_prefill_ms']:.2f} ms ({smi})")
+        print("  one attention call at that length, rel_l2 to the f32 "
+              "oracle: " + ", ".join(
+                  f"{k} {v:.3e}"
+                  for k, v in cmp["one_call_vs_f32_oracle"].items()))
+    del engine, model
     if cuda:
         torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t_phase
     return out
+
+
+@contextmanager
+def pinned_routing(choices: list):
+    """While open, every MoE layer's top-k expert choices (``moe._gates``)
+    are appended to ``choices`` where it starts empty, else replaced, call
+    by call, by the ones it holds, their gate values then the router's own
+    probabilities at those experts, normalised as ``_gates`` does."""
+    import torch
+
+    from repro_torch.models import moe
+    gates = moe._gates
+    replay = list(choices)
+
+    def pinned(logits, top_k):
+        probs, vals, idx = gates(logits, top_k)
+        if not replay:
+            choices.append(idx)
+            return probs, vals, idx
+        idx = replay.pop(0)
+        vals = torch.gather(probs, -1, idx)
+        return probs, vals / torch.clamp(vals.sum(-1, keepdim=True),
+                                         min=1e-9), idx
+
+    moe._gates = pinned
+    try:
+        yield
+    finally:
+        moe._gates = gates
+
+
+def compare_routes(model, kernel_config: dict, req, sync,
+                   failures: list[str], tag: str = "lm") -> dict:
+    """``req``'s prompt (and frames) prefilled by ``model`` through the
+    kernel route under ``kernel_config`` and under the op's own config,
+    and through the plain route: each kernel prefill's last logits within
+    ``LM_TOL`` of the plain one's, the plain model's prefill on the plain
+    route alone.  Beside them the rounding control: the kernel under
+    ``kernel_config`` with its other ``block_kv`` (the same sums in
+    another order), against ``kernel_config``'s.  A MoE model's routes are
+    held with the plain route's expert choices pinned to the kernel
+    route's (:func:`pinned_routing`): a top-k choice is a step function of
+    the router's logits, so a rounding-level difference in any layer's
+    attention flips some tokens' experts and every layer after compounds
+    it, the control as much as the routes (PERF.md section 6, PR 30); the
+    unpinned distance is reported.  Then one attention call of the
+    model's heads at that length on seeded q, k, v, each route against
+    the f32 oracle within the JAX package's tolerance.  Failures are
+    prefixed with ``tag``; returns the distances and each prefill's
+    milliseconds."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.attention import ops as fops
+    from repro_torch.kernels.attention.ref import mha_reference
+    from repro_torch.kernels.attention.space import build_space
+    from repro_torch.kernels.common import admits
+    from repro_torch.models.attention import (ROUTES, _mask_bias, _sdpa,
+                                              admitted_config)
+    from repro_torch.quickstart import rel_l2, tolerance
+    cfg, dev = model.cfg, model.device
+    n = len(req.prompt)
+    plain = model.with_attention_impl("plain")
+    batch = {"tokens": torch.as_tensor(req.prompt[None].astype(np.int64),
+                                       device=dev)}
+    if req.frames is not None:
+        batch["frames"] = torch.as_tensor(req.frames[None], device=dev)
+    plan = dict(fops.DEFAULT_CONFIG, **kernel_config)
+    other = dict(plan, block_kv=64 if plan["block_kv"] == 128 else 128)
+    if not admits(build_space(cfg.n_heads, cfg.n_kv_heads, n, n,
+                              cfg.d_head), other):
+        other = None
+    moe = bool(cfg.n_experts)
+    # each MoE run's expert choices: the kernel's recorded, replayed into
+    # the pinned plain run; the plain run's recorded beside them
+    choices = {"kernel": [], "plain": [], "plain_pinned": None}
+    runs = [("kernel", model, kernel_config),
+            ("kernel_own", model, None),
+            ("plain", plain, None)]
+    if other:
+        runs.append(("kernel_other", model, other))
+    if moe:
+        runs.append(("plain_pinned", plain, None))
+        choices["plain_pinned"] = choices["kernel"]
+    cmp = {}
+    for name, m, kc in runs:
+        sync()
+        before = ROUTES["plain"]
+        t0 = time.perf_counter()
+        pin = choices.get(name) if moe else None
+        with contextlib.nullcontext() if pin is None else \
+                pinned_routing(pin):
+            logits, _, _ = m.prefill(batch, kernel_config=kc)
+        sync()
+        cmp[name] = (logits[0].float(), (time.perf_counter() - t0) * 1e3)
+        if name == "plain":
+            plain_routed = ROUTES["plain"] - before
+    ref = cmp["plain_pinned" if moe else "plain"][0]
+    err = rel_l2(cmp["kernel"][0], ref)
+    err_own = rel_l2(cmp["kernel_own"][0], cmp["plain"][0])
+    unpinned = rel_l2(cmp["kernel"][0], cmp["plain"][0])
+    control = rel_l2(cmp["kernel_other"][0], cmp["kernel"][0]) \
+        if other else None
+    # the share of tokens whose top-k experts differ, kernel against
+    # plain route, by layer
+    flips = [float((a.sort(-1).values != b.sort(-1).values).any(-1)
+                   .float().mean())
+             for a, b in zip(choices["kernel"], choices["plain"])]
+    agree = int(cmp["kernel"][0].argmax()) == int(cmp["plain"][0].argmax())
+    held = [("plan's config", err)] if moe else \
+        [("plan's config", err), ("op's own config", err_own)]
+    for name, e in held:
+        if not e <= LM_TOL:
+            failures.append(f"{tag}: kernel ({name}) vs plain route"
+                            f"{' (routing pinned)' if moe else ''} rel_l2 "
+                            f"{e:.3e} > {LM_TOL:g} at {n} tokens")
+    if plain_routed != sum(attention_routes(cfg, n).values()):
+        failures.append(f"{tag}: the plain model's prefill took the kernel")
+    gen = torch.Generator(dev).manual_seed(7)
+    qkv = [torch.randn(h, n, cfg.d_head, generator=gen, device=dev)
+           .to(torch.bfloat16) for h in (cfg.n_heads, cfg.n_kv_heads,
+                                         cfg.n_kv_heads)]
+    oracle = mha_reference(*(t.float() for t in qkv),
+                           scale=cfg.d_head ** -0.5)
+    bias = _mask_bias(n, n, 0, None, True, dev)
+    one = {"kernel": fops.attention(*qkv, config=admitted_config(
+               *qkv, kernel_config)),
+           "kernel_own": fops.attention(*qkv),
+           "plain": _sdpa(*(t.transpose(0, 1)[None] for t in qkv),
+                          bias)[0].transpose(0, 1)}
+    one_call = {name: rel_l2(o.float(), oracle) for name, o in one.items()}
+    for name, plan_cfg in (("kernel", kernel_config),
+                           ("kernel_own", fops.DEFAULT_CONFIG),
+                           ("plain", {})):
+        tol = tolerance("flash_attention_h100", plan_cfg)
+        if not one_call[name] <= tol:
+            failures.append(f"{tag}: one attention call by {name} misses "
+                            f"the f32 oracle: rel_l2 {one_call[name]:.3e} > "
+                            f"{tol:g}")
+    return {"prompt": n, "rel_l2": err, "rel_l2_own_config": err_own,
+            "tolerance": LM_TOL, "routing_pinned": moe,
+            "rel_l2_unpinned": unpinned, "expert_flips": flips,
+            "control_config": other,
+            "control_rel_l2": control, "argmax_agrees": agree,
+            "kernel_prefill_ms": cmp["kernel"][1],
+            "kernel_own_prefill_ms": cmp["kernel_own"][1],
+            "plain_prefill_ms": cmp["plain"][1],
+            "one_call_vs_f32_oracle": one_call}
 
 
 #: the train phase, part (a): ``TRAIN_ARCH`` at its published widths (d
@@ -1889,10 +2081,7 @@ def train_check(smi: str, counts, zero_counts, failures: list[str], *,
             failures.append(f"train: {msg}")
 
     # (a) the step at full width
-    if cuda:
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats(dev)
-    base_gib = torch.cuda.memory_allocated(dev) / gib if cuda else None
+    base_gib = fresh_peak(dev)
     t0 = time.perf_counter()
     model = build_model(cfg).init(0, dev)
     params = dict(model.named_parameters())
@@ -2598,6 +2787,578 @@ def dist_check(smi: str, counts, zero_counts, failures: list[str], *,
     return out
 
 
+#: phase 14 ``families`` (``families_check``): the nine model families
+#: besides qwen3-8b at their published widths (d_model, heads, d_ff,
+#: experts, vocab, window, latent dims), cut in depth only (PERF.md
+#: section 4).  A family's row: the layers it is served at, the layers one
+#: training step takes (None: none at its published widths fits the card),
+#: the prompts the flash kernel takes (``attention_routes``) and those
+#: that run the plain route.  A MoE prompt is a whole number of the
+#: router's 128-token groups or at most one (the reference's
+#: ``x.reshape(g, gs, d)``); deepseek-v2-236b's plain MLA scores take
+#: 128 x T^2 x 4 B a layer (2.1 GiB at 2048), so its prompts stop there;
+#: RWKV-6 and RG-LRU run a Python loop a token, so theirs stop at 1024;
+#: gemma3-27b's 2048 outgrows its 1024-row ring buffers.  Depths: one
+#: whole period of the pattern at least where serving (gemma3-27b 6,
+#: recurrentgemma-9b 3), and for training what 16 B a parameter (bf16
+#: weight and grad, f32 master, m and v) leaves room for under
+#: ``FAMILY_BUDGET_GIB``; deepseek-v2-236b's one layer with its 160
+#: experts would need 67.0 GiB of state.  RWKV-6's step is the phase's
+#: longest: its recurrence steps a token at a time forward, in remat's
+#: recompute and backward (one layer of 2048 tokens 6.3 s on an NVIDIA
+#: H100 80GB HBM3 at 700.00 W, PERF.md section 6, PR 30); its depth is
+#: the first to cut should the phase outgrow its 120 s
+Family = collections.namedtuple("Family", "serve train kernel plain")
+FAMILIES = {
+    "granite-moe-3b-a800m": Family(32, 8, (512, 2048), (100,)),
+    "deepseek-v2-236b": Family(2, None, (), (512, 2048)),
+    "deepseek-coder-33b": Family(4, 2, (512, 2048), (100,)),
+    "qwen3-14b": Family(4, 2, (512, 2048), (100,)),
+    "internvl2-26b": Family(4, 2, (512, 2048), (100,)),
+    "gemma3-27b": Family(6, 1, (), (512, 2048)),
+    "recurrentgemma-9b": Family(3, 3, (), (512, 1024)),
+    "rwkv6-1.6b": Family(4, 4, (), (512, 1024)),
+    "whisper-medium": Family(24, 24, (512, 2048), (100,)),
+}
+#: what a family's bf16 parameters (serving) or 16 B a parameter
+#: (training) may take of the card's 80 GB, the rest left to the cache,
+#: the f32 head and the activations
+FAMILY_BUDGET_GIB = 40.0
+#: (a): 4 slots (``LM_SLOTS``), 8 new tokens a request, room for the
+#: longest prompt and its tokens
+FAMILY_NEW = 8
+FAMILY_MAX_LEN = 2048 + FAMILY_NEW
+#: (a), internvl2-26b: one ``Model.forward(make_cache=True)`` of 256
+#: patches before 1792 text tokens, 2048 positions on the vision-prefix
+#: path (the engine takes no patches, as the JAX engine takes none)
+VISION_PATCHES, VISION_TEXT = 256, 1792
+#: (b): one microbatch of one 2048-position sequence a step (whisper:
+#: 2048 frames and its 448 decoder tokens; internvl2: 256 patches and
+#: 1792 tokens, as ``launch/steps.py`` ``input_specs``), remat on
+FAMILY_SEQ = 2048
+#: (d): every arch of ``configs.ARCHS`` at ``reduce_config``, card against
+#: host on the same weights and inputs: a prefill of ``REDUCED_PROMPT``
+#: tokens (three of the reduced MoE's 16-token groups; past the reduced
+#: 32-row window), ``REDUCED_DECODE`` decode steps through a serving
+#: engine's slot, fed the host's f32 greedy tokens, and one train step on
+#: ``REDUCED_BATCH`` sequences (whisper's of ``REDUCED_FRAMES`` frames)
+REDUCED_PROMPT, REDUCED_DECODE, REDUCED_BATCH, REDUCED_FRAMES = 48, 2, 2, 64
+REDUCED_SEED = 11
+#: in f32 (``torch.bfloat16`` aliased to ``torch.float32`` in the run's
+#: process before ``repro_torch`` is imported; TF32 off), the card's
+#: logits, loss (relative) and each parameter's gradient within
+#: ``REDUCED_F32_TOL`` rel-L2 of the host's: both compute the same f32
+#: ops and differ only in their summation order
+REDUCED_F32_TOL = 1e-4
+#: in bf16, each within ``ROUND_FACTOR`` times the host's own bf16 run's
+#: distance from its f32 run, plus ``ROUND_TOL``: the bound the families
+#: test puts on the sharded step (``tests/test_torch_distributed_families
+#: .py``), since bf16 rounding alone moves these reduced steps far from
+#: f32 (RWKV-6's gradients 0.195-6.86, PERF.md section 6, PR 28)
+ROUND_FACTOR, ROUND_TOL = 5.0, 5e-2
+#: torch threads of each host run of (d): they share the host's cores
+#: with the dry runs
+REDUCED_THREADS = 2
+
+
+def family_config(arch: str, layers: int):
+    """``arch``'s published config cut to ``layers`` decoder layers (an
+    encoder keeps its own depth)."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    return dataclasses.replace(ARCHS[arch], n_layers=layers)
+
+
+def family_batch(cfg, seq: int) -> dict:
+    """One training sequence of ``seq`` positions for ``cfg`` from the
+    synthetic pipeline (seed 0): tokens and labels, with whisper's ``seq``
+    frames before its 448 decoder tokens, or internvl2's patches before
+    ``seq`` minus ``n_patches`` tokens, from numpy seed 3."""
+    import numpy as np
+
+    from repro_torch.data import DataConfig, make_pipeline
+    from repro_torch.launch.steps import WHISPER_DEC_LEN
+    rng = np.random.default_rng(3)
+    extra = {}
+    text = seq
+    if cfg.frontend == "audio":
+        text = WHISPER_DEC_LEN
+        extra["frames"] = rng.standard_normal(
+            (1, seq, cfg.d_model)).astype(np.float32)
+    elif cfg.frontend == "vision":
+        text = seq - cfg.n_patches
+        extra["patches"] = rng.standard_normal(
+            (1, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    batch = make_pipeline(DataConfig(vocab=cfg.vocab, seq_len=text,
+                                     global_batch=1)).batch_at(0)
+    return dict(batch, **extra)
+
+
+def family_train(cfg, seq: int, dev, counts, zero_counts,
+                 failures: list[str], tag: str) -> dict:
+    """One step of ``make_train_step`` (one microbatch, remat as ``cfg``
+    says) of ``cfg`` made on ``dev`` from seed 0 over :func:`family_batch`:
+    the counts set to 0 just before it and read just after (training
+    attention runs the plain route: nothing launches), the loss and grad
+    norm finite and the nll not below ln(vocab) - 1."""
+    import math
+
+    import torch
+
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.models.attention import ROUTES
+    from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+    cuda = dev.type == "cuda"
+    gib = 2.0 ** 30
+    base_gib = fresh_peak(dev)
+    t0 = time.perf_counter()
+    model = build_model(cfg).init(0, dev)
+    params = dict(model.named_parameters())
+    opt_cfg = OptimizerConfig(total_steps=1, warmup_steps=1)
+    state = init_opt_state(opt_cfg, params)
+    if cuda:
+        torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.values())
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in family_batch(cfg, seq).items()}
+    step = make_train_step(model, opt_cfg, 1)
+    zero_counts()
+    ROUTES.clear()
+    t0 = time.perf_counter()
+    state, m = step(model, state, batch)
+    m = {k: float(v) for k, v in m.items()}       # waits for the step
+    ms = (time.perf_counter() - t0) * 1e3
+    launches, routes = counts(), dict(ROUTES)
+    peak = torch.cuda.max_memory_allocated(dev) / gib if cuda else None
+    floor = math.log(cfg.vocab) - 1.0
+    failures.extend(f"{tag}: train {msg}" for ok, msg in [
+        (all(v == 0 for v in launches.values()),
+         f"launched kernels {launches}"),
+        (set(routes) <= {"plain"}, f"attention routes {routes}"),
+        (math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]),
+         f"loss {m['loss']}, grad norm {m['grad_norm']}"),
+        (m["nll"] >= floor, f"first nll {m['nll']:.4f} below ln(V) - 1 = "
+                            f"{floor:.4f}"),
+    ] if not ok)
+    del model, params, state, step, batch
+    if cuda:
+        torch.cuda.empty_cache()
+    return {"layers": cfg.n_layers, "params": n_params,
+            "param_gib": n_params * 2 / gib, "state_gib": n_params * 16 / gib,
+            "init_s": init_s, "step_ms": ms, "loss": m["loss"],
+            "nll": m["nll"], "grad_norm": m["grad_norm"],
+            "launches": sum(launches.values()), "routes": routes,
+            "allocated_before_gib": base_gib,
+            "max_memory_allocated_gib": peak}
+
+
+def vision_check(cfg, dev, counts, zero_counts, failures: list[str],
+                 tag: str, patches: int = VISION_PATCHES,
+                 text: int = VISION_TEXT) -> dict:
+    """internvl2's vision-prefix path: one ``Model.forward(make_cache=
+    True)`` of ``patches`` patch embeddings before ``text`` tokens (made on
+    ``dev`` from seed 0, inputs from numpy seed 4), the counts set to 0
+    just before and read just after: attention launched as
+    :func:`attention_routes` says at ``patches + text`` positions on the
+    card (none on the host), nothing else; logits finite, the caches of
+    every position; the last logits within ``LM_TOL`` of the plain
+    route's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import build_model
+    from repro_torch.quickstart import rel_l2
+    rng = np.random.default_rng(4)
+    batch = {"patches": torch.as_tensor(rng.standard_normal(
+                 (1, patches, cfg.d_model)).astype(np.float32), device=dev),
+             "tokens": torch.as_tensor(rng.integers(
+                 0, cfg.vocab, (1, text)), device=dev)}
+    model = build_model(cfg).init(0, dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, _, (caches, _) = model.forward(batch, make_cache=True)
+        logits = logits[0, -1].float()
+        finite = bool(torch.isfinite(logits).all())
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = counts()
+    with torch.no_grad():
+        plain = model.with_attention_impl("plain").forward(batch)[0][0, -1]
+    err = rel_l2(logits, plain.float())
+    want = {name: 0 for name in launches}
+    want["flash_attention"] = attention_routes(cfg, patches + text)[
+        "kernel"] if dev.type == "cuda" else 0
+    rows = {int(c["attn"]["k"].shape[1]) for c in caches}
+    failures.extend(f"{tag}: vision prefix {msg}" for ok, msg in [
+        (launches == want, f"launches {launches}, want {want}"),
+        (finite, "logits not finite"),
+        (rows == {patches + text}, f"cache rows {rows}"),
+        (err <= LM_TOL, f"kernel vs plain route rel_l2 {err:.3e} > "
+                        f"{LM_TOL:g}"),
+    ] if not ok)
+    del model, caches
+    return {"patches": patches, "text": text, "ms": ms,
+            "launches": launches["flash_attention"], "rel_l2": err}
+
+
+def reduced_run(device: str, tokens: dict | None = None) -> dict:
+    """Part (d)'s one side: each arch of ``configs.ARCHS`` at its reduced
+    config with ``init(0)``'s weights made on the CPU and copied to
+    ``device``: a prefill of ``REDUCED_PROMPT`` tokens (whisper's
+    ``REDUCED_FRAMES`` frames, internvl2's patches before them) spliced
+    into the one slot of a ``ServingEngine``, and ``REDUCED_DECODE`` decode
+    steps through it fed ``tokens[arch]`` (None: this run's own greedy
+    tokens); then one train step's loss and gradients over
+    ``REDUCED_BATCH`` sequences, three labels masked.  Inputs from numpy
+    seed ``REDUCED_SEED``.  Returns, by arch, the prefill's and each
+    step's logits, the tokens fed, this run's argmax after each, the loss
+    and every parameter's gradient, in f32 on the CPU."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ARCHS, reduce_config
+    from repro_torch.models import build_model
+    from repro_torch.serve.decode import ServeConfig, ServingEngine
+    dev = torch.device(device)
+    out = {}
+    for arch in ARCHS:
+        cfg = reduce_config(ARCHS[arch])
+        model = build_model(cfg).init(0, "cpu")
+        if dev.type != "cpu":
+            state = model.state_dict()
+            model = build_model(cfg)
+            model.to_empty(device=dev)
+            model.load_state_dict(state)
+        rng = np.random.default_rng(REDUCED_SEED)
+        n, b = REDUCED_PROMPT, REDUCED_BATCH
+        batch = {k: rng.integers(0, cfg.vocab, (b, n)) for k in ("tokens",
+                                                                 "labels")}
+        batch["labels"][0, :3] = -1
+        prefix = 0
+        if cfg.frontend == "audio":
+            batch["frames"] = rng.standard_normal(
+                (b, REDUCED_FRAMES, cfg.d_model)).astype(np.float32)
+        elif cfg.frontend == "vision":
+            prefix = cfg.n_patches
+            batch["patches"] = rng.standard_normal(
+                (b, prefix, cfg.d_model)).astype(np.float32)
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        engine = ServingEngine(model, ServeConfig(
+            n_slots=1, max_len=prefix + n + REDUCED_DECODE,
+            max_new_tokens=REDUCED_DECODE))
+        with torch.no_grad():
+            logits, caches, enc = model.prefill(
+                {k: v[:1] for k, v in batch.items() if k != "labels"})
+            engine._splice(caches, 0)
+            cache, outs = engine.cache, [logits[0]]
+            own = [int(logits[0].argmax())]
+            fed = list(tokens[arch]) if tokens else []
+            for i in range(REDUCED_DECODE):
+                if not tokens:
+                    fed.append(own[-1])
+                logits, cache = model.decode_step(
+                    cache, torch.tensor([[fed[i]]], device=dev),
+                    prefix + n + i, enc_out=enc)
+                outs.append(logits[0])
+                own.append(int(logits[0].argmax()))
+        loss, _ = model.train_loss(batch)
+        loss.backward()
+        out[arch] = {"logits": [o.float().cpu() for o in outs],
+                     "tokens": fed, "argmax": own,
+                     "loss": float(loss.detach()),
+                     "grads": {k: p.grad.float().cpu()
+                               for k, p in model.named_parameters()
+                               if p.grad is not None}}
+        del model, engine, cache, caches
+    return out
+
+
+def reduced_main(device: str, out: str, f32: bool,
+                 tokens: str | None) -> int:
+    """``--reduced-run``: :func:`reduced_run` on ``device`` in this process,
+    saved to ``out`` (``torch.save``); with ``f32``, ``torch.bfloat16``
+    aliased to ``torch.float32`` before ``repro_torch`` is imported, so
+    that every bf16 of the port (the port has no dtype setting; defaults
+    such as the parameters' dtype are bound at import) is computed in f32;
+    ``tokens``: a JSON file of the tokens to feed each arch's decode
+    steps."""
+    import unittest.mock
+
+    import torch
+    alias = unittest.mock.patch.object(torch, "bfloat16", torch.float32)
+    if f32:
+        alias.start()
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if device == "cpu":
+        torch.set_num_threads(REDUCED_THREADS)
+    fed = json.loads(Path(tokens).read_text()) if tokens else None
+    t0 = time.perf_counter()
+    res = reduced_run(device, fed)
+    if f32:
+        alias.stop()        # the file's own dtypes are torch's again
+    torch.save({"runs": res, "seconds": time.perf_counter() - t0}, out)
+    return 0
+
+
+def _reduced_cmd(device: str, out: Path, f32: bool,
+                 tokens: Path | None = None) -> list[str]:
+    return [sys.executable, str(ROOT / "chip_smoke.py"), "--reduced-run",
+            device, "--out", str(out)] + (["--f32"] if f32 else []) \
+        + (["--tokens", str(tokens)] if tokens else [])
+
+
+def _run_reduced(cmd: list[str]) -> dict:
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                       timeout=900)
+    return {"cmd": cmd[2:], "rc": r.returncode, "stderr": r.stderr[-3000:],
+            "seconds": time.perf_counter() - t0}
+
+
+def start_reduced_runs() -> dict:
+    """Start part (d)'s host half now, in a thread: the reduced archs in
+    f32 on the CPU (greedy: their tokens are the ones every other run of
+    (d) is fed), then in bf16 fed those tokens, each a subprocess of
+    :func:`reduced_main`.  They need the host's cores alone, so main
+    starts them beside the dry runs; :func:`families_check` collects
+    them."""
+    from concurrent.futures import ThreadPoolExecutor
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_reduced"))
+    atexit.register(shutil.rmtree, work, True)
+
+    def host():
+        runs = [_run_reduced(_reduced_cmd("cpu", work / "host_f32.pt",
+                                          True))]
+        if runs[0]["rc"] == 0:
+            import torch
+            got = torch.load(work / "host_f32.pt")["runs"]
+            (work / "tokens.json").write_text(json.dumps(
+                {a: r["tokens"] for a, r in got.items()}))
+            runs.append(_run_reduced(_reduced_cmd(
+                "cpu", work / "host_bf16.pt", False, work / "tokens.json")))
+        return runs
+
+    pool = ThreadPoolExecutor(1)
+    future = pool.submit(host)
+    pool.shutdown(wait=False)
+    return {"future": future, "dir": work, "started": time.perf_counter()}
+
+
+def reduced_compare(runs: dict) -> dict:
+    """Part (d)'s distances, by arch: the card's f32 run against the
+    host's (``card_f32``, ``host_f32``: the worst rel-L2 over the logits
+    and the gradients, or the loss's relative difference, and where it
+    is), and the card's bf16 run against the host's, each quantity beside
+    its bound, ``ROUND_FACTOR`` times the host bf16 run's distance from
+    its f32 run plus ``ROUND_TOL`` (the worst ratio of distance to bound,
+    and every quantity past its bound)."""
+    from repro_torch.quickstart import rel_l2
+
+    def rel(a, b):
+        return abs(a - b) / max(abs(b), 1e-30)
+
+    def parts(r):
+        return dict({f"logits.{i}": t for i, t in enumerate(r["logits"])},
+                    **{f"grad.{k}": g for k, g in r["grads"].items()})
+
+    out = {}
+    for arch, h32 in runs["host_f32"].items():
+        c32, h16, c16 = (runs[k][arch] for k in ("card_f32", "host_bf16",
+                                                  "card_bf16"))
+        p_h32, p_c32, p_h16, p_c16 = map(parts, (h32, c32, h16, c16))
+        f32 = {k: rel_l2(p_c32[k], v) for k, v in p_h32.items()}
+        f32["loss"] = rel(c32["loss"], h32["loss"])
+        bf16 = {k: (rel_l2(p_c16[k], p_h16[k]),
+                    ROUND_FACTOR * rel_l2(p_h16[k], v) + ROUND_TOL)
+                for k, v in p_h32.items()}
+        bf16["loss"] = (rel(c16["loss"], h16["loss"]),
+                        ROUND_FACTOR * rel(h16["loss"], h32["loss"])
+                        + ROUND_TOL)
+        worst = max(f32, key=f32.get)
+        worst16 = max(bf16, key=lambda k: bf16[k][0] / bf16[k][1])
+        out[arch] = {
+            "f32_worst": worst, "f32_rel": f32[worst],
+            "f32_logits": max(v for k, v in f32.items()
+                              if k.startswith("logits")),
+            "f32_loss": f32["loss"],
+            "bf16_worst": worst16, "bf16_rel": bf16[worst16][0],
+            "bf16_bound": bf16[worst16][1],
+            "bf16_over": [k for k, (d, bnd) in bf16.items() if d > bnd],
+            "tokens_fed": h32["tokens"],
+            "argmax_agrees": {k: runs[k][arch]["argmax"] == h32["argmax"]
+                              for k in ("card_f32", "host_bf16",
+                                        "card_bf16")}}
+    return out
+
+
+def families_check(smi: str, counts, zero_counts, failures: list[str], *,
+                   reduced: dict, device: str = "cuda",
+                   families: dict = FAMILIES, config=family_config,
+                   seq: int = FAMILY_SEQ,
+                   max_len: int = FAMILY_MAX_LEN,
+                   vision=(VISION_PATCHES, VISION_TEXT)) -> dict:
+    """The nine other model families on ``device``, each row of
+    ``families`` (``config(arch, layers)`` gives the
+    model, default :func:`family_config`): (a) served by
+    :func:`lm_check` (no find-DB: the plan's tier ``default``; 4 slots,
+    ``FAMILY_NEW`` tokens a request; the counts set to 0 just before the
+    requests and read just after: attention launched once a layer that
+    takes it for each kernel prompt, nothing else; the longest kernel
+    prompt's logits by both routes within ``LM_TOL``, each attention call
+    within the JAX package's oracle tolerance), internvl2's
+    vision-prefix forward too (:func:`vision_check`); (b) one training
+    step (:func:`family_train`); (d) the reduced archs card against host,
+    in f32 within ``REDUCED_F32_TOL`` and in bf16 within ``ROUND_FACTOR``
+    x the host's own bf16-to-f32 distance + ``ROUND_TOL``: the host's
+    runs (``reduced``, :func:`start_reduced_runs`) collected here, the
+    card's f32 run a subprocess started as this phase begins and its bf16
+    run in this process.  Prints each number beside ``smi``; returns what
+    it measured."""
+    import torch
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+
+    # (d) the card's f32 run starts first, fed the host's f32 tokens
+    host_runs = reduced["future"].result()
+    work = reduced["dir"]
+    card_f32 = None
+    if len(host_runs) == 2 and not host_runs[1]["rc"]:
+        from concurrent.futures import ThreadPoolExecutor
+        pool = ThreadPoolExecutor(1)
+        card_f32 = pool.submit(_run_reduced, _reduced_cmd(
+            device, work / "card_f32.pt", True, work / "tokens.json"))
+        pool.shutdown(wait=False)
+
+    out: dict = {}
+    launched = 0
+    for arch, fam in families.items():
+        tag = f"families: {arch}"
+        t0 = time.perf_counter()
+        cfg = config(arch, fam.serve)
+        serve = lm_check(None, smi, counts, zero_counts, failures, cfg=cfg,
+                         device=device, kernel_prompts=fam.kernel,
+                         plain_prompts=fam.plain,
+                         compare=fam.kernel[-1] if fam.kernel else None,
+                         max_len=max_len, new_tokens=FAMILY_NEW,
+                         want_tier="default", tag=tag)
+        launched += serve["launches"]
+        row = {"serve": serve}
+        if cfg.frontend == "vision":
+            row["vision"] = vision_check(cfg, dev, counts, zero_counts,
+                                         failures, tag, *vision)
+            launched += row["vision"]["launches"]
+            print(f"  vision prefix: {vision[0]} patches + {vision[1]} "
+                  f"tokens in {row['vision']['ms']:.2f} ms, attention "
+                  f"launches {row['vision']['launches']}, kernel vs plain "
+                  f"rel_l2 {row['vision']['rel_l2']:.3e} ({smi})")
+        if fam.train:
+            tr = family_train(config(arch, fam.train), seq, dev, counts,
+                              zero_counts, failures, tag)
+            row["train"] = tr
+            peak, base = (tr[k] if tr[k] is None else round(tr[k], 2)
+                          for k in ("max_memory_allocated_gib",
+                                    "allocated_before_gib"))
+            print(f"  train: {tr['layers']} layers, {tr['params'] / 1e9:.3f}"
+                  f" B parameters ({tr['state_gib']:.2f} GiB at 16 B; "
+                  f"allocated before {base} GiB), one "
+                  f"step of {seq} positions {tr['step_ms']:.1f} ms, loss "
+                  f"{tr['loss']:.4f}, nll {tr['nll']:.4f}, grad norm "
+                  f"{tr['grad_norm']:.4f}, launches {tr['launches']}, "
+                  f"routes {tr['routes']}, init {tr['init_s']:.2f} s, peak "
+                  f"{peak} GiB ({smi})")
+        row["seconds"] = time.perf_counter() - t0
+        print(f"  {arch}: {row['seconds']:.1f} s")
+        out[arch] = row
+
+    # (d) the card's bf16 run here, then the four runs compared
+    t0 = time.perf_counter()
+    runs = {}
+    if (work / "tokens.json").exists():
+        runs["card_bf16"] = reduced_run(device, json.loads(
+            (work / "tokens.json").read_text()))
+    card_bf16_s = time.perf_counter() - t0
+    if card_f32 is not None:
+        host_runs.append(card_f32.result())
+    for run in host_runs:
+        if run["rc"]:
+            failures.append(f"families: (d) {run['cmd']} exit {run['rc']}: "
+                            f"{run['stderr']}")
+    for name in ("host_f32", "host_bf16", "card_f32"):
+        if (work / f"{name}.pt").exists():
+            runs[name] = torch.load(work / f"{name}.pt")["runs"]
+    reduced_out = reduced_compare(runs) if len(runs) == 4 else {}
+    if len(runs) != 4:
+        failures.append(f"families: (d) runs missing: have {sorted(runs)}")
+    for arch, r in reduced_out.items():
+        if r["f32_rel"] > REDUCED_F32_TOL:
+            failures.append(f"families: (d) {arch} in f32: {r['f32_worst']} "
+                            f"rel {r['f32_rel']:.3e} > {REDUCED_F32_TOL:g}")
+        if r["bf16_over"]:
+            failures.append(f"families: (d) {arch} in bf16 past "
+                            f"{ROUND_FACTOR:g} x the host's bf16-to-f32 "
+                            f"distance + {ROUND_TOL:g}: {r['bf16_over']}")
+        print(f"  (d) {arch}: f32 worst {r['f32_worst']} {r['f32_rel']:.3e}"
+              f" (logits {r['f32_logits']:.3e}, loss {r['f32_loss']:.3e}); "
+              f"bf16 worst {r['bf16_worst']} {r['bf16_rel']:.3e} of bound "
+              f"{r['bf16_bound']:.3e}; argmax as the host's f32 "
+              f"{r['argmax_agrees']} ({smi})")
+    print("  (d) runs: " + ", ".join(
+        f"{r['cmd'][1]} {'f32' if '--f32' in r['cmd'] else 'bf16'} "
+        f"{r['seconds']:.1f} s" for r in host_runs)
+        + f"; the card's bf16 run {card_bf16_s:.1f} s in this process; the "
+        f"host's started {t_phase - reduced['started']:.1f} s ahead")
+    return {"families": out, "launches": launched, "reduced": reduced_out,
+            "reduced_runs": [{k: v for k, v in r.items() if k != "stderr"}
+                             for r in host_runs],
+            "reduced_card_bf16_s": card_bf16_s,
+            "reduced_ahead_s": t_phase - reduced["started"],
+            "nvidia_smi": smi, "seconds": time.perf_counter() - t_phase}
+
+
+def families_main() -> int:
+    """Phase 14 alone on the card (``python -c "import chip_smoke, sys;
+    sys.exit(chip_smoke.families_main())"``): the host's reduced runs
+    started, the phase run, its failures printed; exit 1 on any, 2 with
+    no card."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    reduced = start_reduced_runs()
+    kernels = kernel_table()
+
+    def counts() -> dict:
+        return {name: op.launches for name, (_, op) in kernels.items()}
+
+    def zero_counts() -> None:
+        for _, op in kernels.values():
+            op.launches = op.device_launches = 0
+
+    failures: list[str] = []
+    smi = nvidia_smi_line()
+    print(f"nvidia-smi: {smi}")
+    with phase("families"):
+        fam = families_check(smi, counts, zero_counts, failures,
+                             reduced=reduced)
+        print(f"  families phase {fam['seconds']:.1f} s (mark 120 s); "
+              f"attention launches {fam['launches']}")
+    if failures:
+        print("chip_smoke FAILED:\n  " + "\n  ".join(failures),
+              file=sys.stderr)
+        return 1
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="smoke run of the port on a card")
     ap.add_argument("--budget", type=int, default=100,
@@ -2612,10 +3373,21 @@ def main(argv=None) -> int:
                     metavar="T", help="run only the start probe, started "
                     "at time.time() T, and print its stamps (what the "
                     "orchestrator phase runs)")
+    ap.add_argument("--reduced-run", default=None, metavar="DEVICE",
+                    help="run only one side of the families phase's part "
+                    "(d) on DEVICE into --out (what that phase runs)")
+    ap.add_argument("--out", default=None, help="--reduced-run's file")
+    ap.add_argument("--f32", action="store_true",
+                    help="--reduced-run with torch.bfloat16 as float32")
+    ap.add_argument("--tokens", default=None,
+                    help="--reduced-run's decode tokens (JSON)")
     args = ap.parse_args(argv)
     if args.start_probe is not None:
         print(json.dumps(start_probe(args.start_probe)))
         return 0
+    if args.reduced_run is not None:
+        return reduced_main(args.reduced_run, args.out, args.f32,
+                            args.tokens)
 
     import torch
     if not torch.cuda.is_available():
@@ -3335,9 +4107,11 @@ def main(argv=None) -> int:
         print(f"  fastest f32 attention config with block_h 1 "
               f"{f32_h1[0] * 1e3:.4f} ms {cfgs_t[f32_h1[1]]}")
 
-    # phase 13 (d)'s dry runs need the host's cores and no card: they run
-    # while the paths below keep the card, not the host, busy
+    # phase 13 (d)'s dry runs and phase 14 (d)'s host runs need the host's
+    # cores and no card: they run while the paths below keep the card, not
+    # the host, busy
     dryruns = start_dry_runs()
+    reduced = start_reduced_runs()
 
     with phase("nbody"):
         npath = run_path("nbody_h100", "nbody", nfull,
@@ -3857,6 +4631,14 @@ def main(argv=None) -> int:
               f"script so far "
               f"{time.time() - STARTED:.1f} s")
 
+    with phase("families"):
+        fam = families_check(nvidia_smi_line(), counts, zero_counts,
+                             failures, reduced=reduced)
+        record["families"] = fam
+        print(f"  families phase {fam['seconds']:.1f} s (mark 120 s); "
+              f"attention launches {fam['launches']}; script so far "
+              f"{time.time() - STARTED:.1f} s")
+
     lines = [
         {"name": "gemm", "route": "cuda",
          "source": "src/repro_torch/csrc/gemm.cu",
@@ -3894,6 +4676,7 @@ def main(argv=None) -> int:
          "train_launches": tr["launches"]["flash_attention"],
          "dist_launches": dst["launches"],
          "dist_opt_launches": dst["opt_launches"],
+         "families_launches": fam["launches"],
          "build_s": build_s},
     ] + f32_lines
     for line in f32_lines:

@@ -2,10 +2,11 @@
 (``repro_torch.launch.serve``) on the CPU.
 
 Greedy completions equal the JAX engine's token for token, on the same
-weights and prompts, for a GQA arch (qwen3), a windowed one whose prompt
-outgrows its ring buffer (gemma3), two recurrent ones (recurrentgemma,
-rwkv6), the encoder-decoder (whisper) and MLA + MoE (deepseek-v2), with
-more requests than slots.  The JAX engine's prefill and decode are
+weights and prompts, for all ten archs: GQA ones (qwen3-8b, qwen3-14b,
+deepseek-coder), a windowed one whose prompt outgrows its ring buffer
+(gemma3), two recurrent ones (recurrentgemma, rwkv6), the encoder-decoder
+(whisper), MLA + MoE (deepseek-v2), MoE (granite) and the vision one's
+text path (internvl2), with more requests than slots.  The JAX engine's prefill and decode are
 compiled with XLA's excess precision off (``torch_lm.strict_jit``), so
 that both round every bf16 result alike and a near tie of two logits
 cannot fall apart by a rounding the code does not ask for.  Temperature
@@ -31,9 +32,10 @@ from repro_torch.servedb import (STATIC_DEFAULTS, TIERS, Snapshot,  # noqa: E402
 from repro_torch.serve.decode import (ENC_OUT_LEN, FLASH, Request,  # noqa: E402
                                       ServeConfig, ServingEngine)
 
-#: the archs served against the JAX engine, one of each kind
+#: the archs served against the JAX engine: every one of ``ARCHS``
 PARITY_ARCHS = ("qwen3-8b", "gemma3-27b", "recurrentgemma-9b", "rwkv6-1.6b",
-                "whisper-medium", "deepseek-v2-236b")
+                "whisper-medium", "deepseek-v2-236b", "granite-moe-3b-a800m",
+                "internvl2-26b", "qwen3-14b", "deepseek-coder-33b")
 
 
 @pytest.fixture(autouse=True, scope="module")
